@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (`tda_eeg_audio_tpu_torch`).
+
+    python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
+
+Phases, each fatal on failure:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernel (nvcc, sm_90a) from the sources in the checkout;
+  3. hold the kernel against its plain PyTorch version on the card, at the
+     shapes of the main path: the features stage's n = 47 EEG windows and
+     the comparison's n = 124 Takens clouds of one 16-recording batch —
+     pair keys, bars, step counts and overflow flags must be identical;
+  4. drive one full-width study batch (16 synthetic recordings, 47 channels,
+     5 bands, 1537 taps, T_pad 5800, K 39 / 15) through
+     eeg_feature_program → audio_h1_program (mismatch audio) →
+     comparison_program, with the launch count zeroed just before and read
+     just after, the comparison stage's parts timed by its own spans, and
+     check shapes, finiteness and launches;
+  5. hold the CUDA run of a small batch against the CPU run (plain path);
+then print the `kernels` JSON line, the card line, and the result line.
+Imports nothing of JAX or of the reference package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+B_REC = 16          # recordings per batch
+K_FEAT = 39         # features-stage windows per band
+K_CMP = 15          # comparison windows per band
+N_WIN_MAX = 90
+N_RS_MAX = 5900
+HBM_BYTES_PER_S = 3.35e12
+# int32 ALU peak of an H100 SXM, from its published 67 TFLOP/s float32 rate
+# outside the tensor cores: an FMA counts 2 FLOPs, and an SM has half as
+# many INT32 lanes as FP32 lanes, so 67e12 / 4 one-op-per-clock int32 ops/s
+INT32_OPS_PER_S = 67e12 / 4
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 1) -> float:
+    """Mean device milliseconds of fn() over reps, by CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def feature_distances(eeg, n_e, use_idx, cfg, n_win_max):
+    """The features stage's EEG correlation-distance windows (B·5·K, 47, 47)
+    on eeg's device."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.models import programs as P
+    from tda_eeg_audio_tpu_torch.ops import geometry as G
+
+    use_idx = torch.as_tensor(use_idx, device=eeg.device).long()
+    wins, _ = P._banded_windows(eeg, n_e, cfg, n_win_max)
+    C, win = wins.shape[-2:]
+    sel = wins.gather(2, use_idx[:, :, :, None, None].expand(-1, -1, -1, C, win))
+    d = G.correlation_to_distance(G.correlation_matrix(sel), cfg.distance_method)
+    return d.reshape(-1, C, C).contiguous()
+
+
+def stage_inputs(batch, cfg, dev):
+    """The H1 inputs of the main path: the features stage's EEG distance
+    windows (B·5·K_FEAT, 47, 47) and the comparison's own-audio Takens
+    distance matrices (B·5·K_CMP, 124, 124) with their valid-point counts."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.models import programs as P
+
+    eeg = torch.as_tensor(batch["eeg"], device=dev)
+    n_e = torch.as_tensor(batch["n_e"], device=dev).long()
+    d47 = feature_distances(eeg, n_e, batch["use_idx"], cfg, N_WIN_MAX)
+    n_win_e = P.window_count_program(n_e, cfg.win_samples, cfg.step_samples,
+                                     eeg.shape[-1])
+    aud = P.audio_takens_program(batch["audio"], batch["n_a"], cfg, N_RS_MAX,
+                                 N_WIN_MAX, K_CMP, n_win_cap=n_win_e, device=dev)
+    Pn = cfg.max_takens_points
+    d124 = aud["dm"].reshape(-1, Pn, Pn).contiguous()
+    npts = aud["n_pts"].reshape(-1)
+    return d47, d124, npts
+
+
+def check_kernel(dm, n_pts, n, na_max, step_budget):
+    """Kernel vs plain reduction on the same phase-1 operands, in the main
+    path's window chunks.  Returns a dict of the comparison, the timings and
+    the two terms of the bound."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
+    from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
+
+    na_eff = min(na_max, n * (n - 1) // 2)
+    chunk = HC.window_chunk(n, na_max)
+    chunks = []
+    for c in range(0, dm.shape[0], chunk):
+        npc = None if n_pts is None else n_pts[c:c + chunk]
+        ph = H._phase1(dm[c:c + chunk], n, 2.0, na_max, npc)
+        chunks.append((ph, H.reduction_inputs(ph)))
+    torch.cuda.synchronize()
+
+    # the whole wrapper on the kernel, against the plain reduction (timed,
+    # counting the words of work each window needs) and the same bar
+    # extraction
+    out_k = HC.h1_diagrams_cuda(dm, n_pts, n=n, thresh=2.0, na_max=na_max,
+                                h1_max=na_max, step_budget=step_budget)
+    word_ops = [torch.zeros(ph["m_cx"].shape[0], dtype=torch.int64,
+                            device=dm.device) for ph, _ in chunks]
+    red, plain_ms = wall_ms(lambda: [
+        H.reduce_plain(*ins, n=n, step_budget=step_budget, word_ops=w)
+        for (_, ins), w in zip(chunks, word_ops)])
+    outs = [H._extract_bars(*r, ph, n, na_max) for r, (ph, _) in zip(red, chunks)]
+    out_p = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    mismatched = [k for k in out_k if not torch.equal(out_k[k], out_p[k])]
+    # over the visible bars; equal values (an essential class's +inf death
+    # included) count as 0
+    vis = out_k["mask"] & out_p["mask"]
+    err = 0.0
+    if bool(vis.any()):
+        for key in ("births", "deaths"):
+            a, b = out_k[key][vis], out_p[key][vis]
+            err = max(err, float(torch.where(a == b, 0.0, (a - b).abs()).max()))
+
+    def run_kernel():
+        for _, ins in chunks:
+            HC.reduce_cuda(*ins, n=n, step_budget=step_budget)
+
+    run_kernel()                                    # warm
+    ms = cuda_ms(run_kernel, reps=3)
+
+    # bound: operands read once + outputs written once over HBM, against
+    # one int32 operation per column word the data needs (word_ops)
+    steps = out_k["steps"].to(torch.float64)
+    in_bytes = sum(t.numel() * t.element_size() for _, ins in chunks for t in ins)
+    out_bytes = dm.shape[0] * (na_eff + 2) * 4
+    ops = float(sum(int(w.sum()) for w in word_ops))
+    return dict(n=n, windows=int(dm.shape[0]), chunks=len(chunks),
+                mismatched=mismatched, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, word_ops=ops,
+                t_bytes=(in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                t_ops=ops / INT32_OPS_PER_S * 1e3,
+                steps_mean=float(steps.mean()), steps_max=int(steps.max()),
+                overflow=int(out_k["overflow"].sum()))
+
+
+def main_path(batch, mis, cfg, dev):
+    """One full-width batch through the three entry points, timed per stage,
+    with the kernel's launches counted per stage."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.models import programs as P
+    from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+
+    ms, launches = {}, {}
+
+    def stage(name, fn):
+        before = h1_diagrams_cuda.launches
+        out, ms[name] = wall_ms(fn)
+        launches[name] = h1_diagrams_cuda.launches - before
+        return out
+
+    agg, diag, ovf = stage("features", lambda: P.eeg_feature_program(
+        batch["eeg"], batch["n_e"], batch["use_idx"], batch["use_mask"], cfg,
+        N_WIN_MAX, K_FEAT, return_dm0=True, device=dev))
+    mo = stage("mismatch_audio", lambda: P.audio_h1_program(
+        mis["audio"], mis["n_a"], cfg, N_RS_MAX, N_WIN_MAX, K_CMP, device=dev))
+    out = stage("comparison", lambda: P.comparison_program(
+        batch["eeg"], batch["n_e"], batch["audio"], batch["n_a"],
+        (mo["h1_b"], mo["h1_d"], mo["h1_m"]), mo["n_win"], mo["degen"], cfg,
+        N_WIN_MAX, N_RS_MAX, K_CMP, device=dev))
+    torch.cuda.synchronize()
+    return dict(agg=agg, diag=diag, ovf=ovf, mo=mo, out=out, ms=ms,
+                launches=launches)
+
+
+def small_reference_check(dev, window_sec: float = 1.0, seed: int = 0):
+    """A small batch through the slice on the card and on the CPU (plain
+    reduction): floats within rtol 1e-4 / atol 1e-5 (the tiered Sinkhorn's
+    w_h1 / w_h1_mis within its parity tolerance, rtol 2e-4), integers exact.
+
+    The study's 1 s windows keep the check well conditioned: over 0.2 s
+    windows the band-limited channels correlate near ±1, where
+    d = sqrt(2(1 − r)) magnifies the card's and the CPU's FFT rounding to
+    ~1e-5 in the distances, as large as the tolerance itself.  Returns the
+    mismatched keys, each float key's largest |got − ref| / allowed, and the
+    largest card − CPU difference of the features stage's distances."""
+    import numpy as np
+    import torch
+
+    from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
+    from tda_eeg_audio_tpu_torch.models import programs as P
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, window_sec=window_sec,
+                              fir_numtaps=101)
+    B, n_win_max, K = 2, 12, 5
+    win, step = cfg.win_samples, cfg.step_samples
+    n_e = np.array([win + 7 * step, win + 8 * step], np.int32)
+    T = win + (n_win_max - 1) * step
+    n_rs_max = T + 100
+    rng = np.random.default_rng(seed)
+    eeg = np.zeros((B, 47, T), np.float32)
+    for i, n in enumerate(n_e):
+        eeg[i, :, :n] = rng.standard_normal((47, n))
+    n_a = (n_e * cfg.fs_audio // cfg.fs_eeg).astype(np.int32)
+    audio = np.zeros((B, int(n_a.max())), np.float32)
+    for i, n in enumerate(n_a):
+        audio[i, :n] = rng.standard_normal(n)
+    use_idx = np.tile(np.arange(K, dtype=np.int32), (B, 5, 1))
+    use_mask = np.ones((B, 5, K), bool)
+
+    def run(d):
+        agg, ovf = P.eeg_feature_program(eeg, n_e, use_idx, use_mask, cfg,
+                                         n_win_max, K, device=d)
+        mo = P.audio_h1_program(audio[::-1].copy(), n_a[::-1].copy(), cfg,
+                                n_rs_max, n_win_max, K, device=d)
+        out = P.comparison_program(eeg, n_e, audio, n_a,
+                                   (mo["h1_b"], mo["h1_d"], mo["h1_m"]),
+                                   mo["n_win"], mo["degen"], cfg, n_win_max,
+                                   n_rs_max, K, device=d)
+        out = dict(out, agg=agg, ovf=ovf)
+        return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+    got, ref = run(dev), run("cpu")
+    bad, ratio = [], {}
+    for k, r in ref.items():
+        g = got[k]
+        if r.dtype.kind == "f":
+            rtol = 2e-4 if k in ("w_h1", "w_h1_mis") else 1e-4
+            ok = np.allclose(g, r, rtol=rtol, atol=1e-5, equal_nan=True)
+            both = np.isfinite(g) & np.isfinite(r)
+            ratio[k] = float((np.abs(g - r) / (1e-5 + rtol * np.abs(r)))[both].max(
+                initial=0.0))
+        else:
+            ok = np.array_equal(g, r)
+        if not ok:
+            bad.append(k)
+    dist = [feature_distances(torch.as_tensor(eeg, device=d),
+                              torch.as_tensor(n_e, device=d).long(), use_idx,
+                              cfg, n_win_max).cpu() for d in (dev, "cpu")]
+    return bad, ratio, float((dist[0] - dist[1]).abs().max())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
+    from tda_eeg_audio_tpu_torch.io.synthetic import SynthDataset, load_batch
+    from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
+    from tda_eeg_audio_tpu_torch.runtime import timed_spans
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # ── phase 2: build ──
+    t0 = time.perf_counter()
+    HC.build(verbose=True)
+    HC._load()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{HC.build_seconds if HC.build_seconds is not None else 'cached'})",
+          flush=True)
+
+    cfg = DEFAULT_CONFIG
+    # 8 subjects × {slow, fast} utterance 1: 16 recordings; each one's
+    # mismatch audio is its subject's other-condition recording
+    ds = SynthDataset(n_subjects=8, n_per_subject=1, cfg=cfg)
+    t0 = time.perf_counter()
+    batch = load_batch(ds, list(range(B_REC)), K_FEAT, cfg)
+    perm = np.arange(B_REC) ^ 1
+    mis = dict(audio=batch["audio"][perm], n_a=batch["n_a"][perm])
+    print(f"data: {B_REC} recordings staged in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ── phase 3: kernel vs plain on the card ──
+    d47, d124, npts = stage_inputs(batch, cfg, dev)
+    checks = {}
+    for name, (dm, np_, n, na, budget) in {
+            "n47": (d47, None, 47, 128, 8192),
+            "n124": (d124, npts, 124, 96, 8192)}.items():
+        r = check_kernel(dm, np_, n, na, budget)
+        checks[name] = r
+        print(f"kernel vs plain n={n}: {r['windows']} windows in {r['chunks']} "
+              f"launch(es), mismatched={r['mismatched']}, "
+              f"max_abs_err={r['max_abs_err']}, kernel {r['ms']:.3f} ms "
+              f"({r['ms'] / r['windows'] * 1e3:.2f} us/window), plain "
+              f"{r['plain_ms']:.1f} ms, bound bytes {r['t_bytes']:.4f} ms / "
+              f"operations {r['t_ops']:.4f} ms ({r['word_ops']:.0f} word ops), "
+              f"steps/window mean {r['steps_mean']:.1f} "
+              f"max {r['steps_max']}, overflow {r['overflow']}", flush=True)
+        if r["mismatched"]:
+            print(f"FAIL: kernel and plain disagree at n={n} on "
+                  f"{r['mismatched']}", file=sys.stderr)
+            return 1
+
+    # ── phase 4: the main path, its comparison stage's parts timed ──
+    main_path(batch, mis, cfg, dev)               # warm-up (cuFFT plans etc.)
+    HC.h1_diagrams_cuda.launches = 0
+    with timed_spans() as parts:
+        res = main_path(batch, mis, cfg, dev)
+    total = HC.h1_diagrams_cuda.launches
+    launches = res["launches"]
+    out, mo = res["out"], res["mo"]
+    expect = dict(agg=(B_REC, 5, 2, 11, 2), diag=(B_REC, 5, 8), ovf=(B_REC,))
+    problems = [f"{k} shape {tuple(res[k].shape)}" for k, s in expect.items()
+                if tuple(res[k].shape) != s]
+    for k, s in dict(w_h0=(B_REC, 5), w_h1=(B_REC, 5), w_h1_mis=(B_REC, 5),
+                     corr_r=(B_REC, 5, 5), corr_p=(B_REC, 5, 5), tau=(B_REC, 5),
+                     n_pair=(B_REC,), a_degen=(B_REC, 5),
+                     overflow=(B_REC,)).items():
+        if tuple(out[k].shape) != s:
+            problems.append(f"{k} shape {tuple(out[k].shape)}")
+        if out[k].is_floating_point() and not bool(torch.isfinite(out[k]).all()):
+            problems.append(f"{k} not finite")
+    if not bool(torch.isfinite(res["agg"]).all()):
+        problems.append("agg not finite")
+    # features runs the kernel at n = 47 only, mismatch audio at n = 124 only
+    if total <= 0 or min(launches.values()) <= 0:
+        problems.append(f"kernel launches by stage {launches}")
+    ms = res["ms"]
+    n_feat_win = B_REC * 5 * K_FEAT
+    n_cmp_win = B_REC * 5 * K_CMP
+    print(f"main path (B={B_REC}): features {ms['features']:.1f} ms "
+          f"({n_feat_win / ms['features'] * 1e3:.0f} windows/s), mismatch audio "
+          f"{ms['mismatch_audio']:.1f} ms ({n_cmp_win / ms['mismatch_audio'] * 1e3:.0f}"
+          f" windows/s), comparison {ms['comparison']:.1f} ms "
+          f"({2 * n_cmp_win / ms['comparison'] * 1e3:.0f} windows/s); total "
+          f"{sum(ms.values()):.1f} ms", flush=True)
+    print(f"overflow: features {int(res['ovf'].sum())}/{B_REC} recordings, "
+          f"mismatch audio {int(mo['overflow'].sum())}/{n_cmp_win} windows, "
+          f"comparison {int(out['overflow'].sum())}/{B_REC} recordings "
+          f"(counted, not redone)", flush=True)
+    print(f"kernel launches on the main path: {total} (by stage {launches})",
+          flush=True)
+    print("comparison parts (wall ms, timed spans): " + json.dumps(
+        {k: round(v, 2) for k, v in parts.items()}), flush=True)
+    print("w_h1 band means: " + json.dumps(
+        [round(float(x), 5) for x in out["w_h1"].mean(0)]), flush=True)
+    if problems:
+        print(f"FAIL: main path: {problems}", file=sys.stderr)
+        return 1
+
+    # ── phase 5: small batch, card vs CPU ──
+    bad, ratio, dist_err = small_reference_check(dev)
+    print(f"small batch card vs CPU: mismatched={bad}, largest error / "
+          f"tolerance {json.dumps({k: round(v, 3) for k, v in ratio.items()})}, "
+          f"distances differ by {dist_err:.3g}", flush=True)
+    if bad:
+        print(f"FAIL: card and CPU runs disagree on {bad}", file=sys.stderr)
+        return 1
+
+    # one kernel at the main path's two shapes: the line sums both checks
+    r47, r124 = checks["n47"], checks["n124"]
+    t_bytes = r47["t_bytes"] + r124["t_bytes"]
+    t_ops = r47["t_ops"] + r124["t_ops"]
+    kernels = [dict(
+        name="h1_reduce", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu",
+        replaces="tda_eeg_audio_tpu/ops/homology_pallas.py:190",
+        launches=total, max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
+        ms=r47["ms"] + r124["ms"], plain_ms=r47["plain_ms"] + r124["plain_ms"],
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+        by_n={f"n={r['n']}": dict(
+            windows=r["windows"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=max(r["t_bytes"], r["t_ops"]), word_ops=r["word_ops"],
+            steps_mean=r["steps_mean"], steps_max=r["steps_max"])
+              for r in (r47, r124)},
+        held_against_plain=not (r47["mismatched"] or r124["mismatched"]))]
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

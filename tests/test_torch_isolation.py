@@ -1,0 +1,45 @@
+"""The port stands alone: importing every module of `tda_eeg_audio_tpu_torch`
+and `chip_smoke` loads neither JAX nor the reference package, and no
+source of the port names them."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import tda_eeg_audio_tpu_torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = Path(tda_eeg_audio_tpu_torch.__file__).resolve().parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="tda_eeg_audio_tpu_torch."))
+
+
+def test_imports_load_no_jax_and_no_reference_package():
+    mods = _modules()
+    assert "tda_eeg_audio_tpu_torch.ops.homology_cuda" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'tda_eeg_audio_tpu' or m.startswith('tda_eeg_audio_tpu.'))\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"loaded: {res.stdout.strip()}"
+
+
+def test_sources_name_neither_jax_nor_reference_package():
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+tda_eeg_audio_tpu\b"
+                     r"(?!_torch)|from\s+tda_eeg_audio_tpu\b(?!_torch))", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        text = f.read_text()
+        assert not pat.search(text), f
+        assert "tda_eeg_audio_tpu." not in text.replace("tda_eeg_audio_tpu_torch", ""), f
