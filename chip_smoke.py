@@ -5,11 +5,16 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernel (nvcc, sm_90a) from the sources in the checkout;
+  2. build the CUDA kernel and its instrumented twin (two nvcc side by
+     side, sm_90a) from the sources in the checkout;
   3. hold the kernel against its plain PyTorch version on the card, at the
      shapes of the main path: the features stage's n = 47 EEG windows and
      the comparison's n = 124 Takens clouds of one 16-recording batch —
-     pair keys, bars, step counts and overflow flags must be identical;
+     pair keys, bars, step counts and overflow flags must be identical —
+     and on a ragged case the main path does not reach (more windows than
+     resident blocks, windows without creators, padded clouds, a step
+     budget that some windows exceed); read the instrumented build's
+     shares of the step at both shapes (the `kernel phases` line);
   4. drive one full-width study batch (16 synthetic recordings, 47 channels,
      5 bands, 1537 taps, T_pad 5800, K 39 / 15) through
      eeg_feature_program → audio_h1_program (mismatch audio) →
@@ -39,6 +44,9 @@ HBM_BYTES_PER_S = 3.35e12
 # outside the tensor cores: an FMA counts 2 FLOPs, and an SM has half as
 # many INT32 lanes as FP32 lanes, so 67e12 / 4 one-op-per-clock int32 ops/s
 INT32_OPS_PER_S = 67e12 / 4
+PLAIN_STORED_BYTES = 1 << 34    # the plain reduction's dense bool columns per call
+# the stage of the main path that runs the kernel at one shape only
+STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
 
 
 def card_line() -> str:
@@ -108,17 +116,56 @@ def stage_inputs(batch, cfg, dev):
     return d47, d124, npts
 
 
+def profile_reading(prof, stamps, steps, launches, n_sms, slots, tick_slots):
+    """One instrumented run read: the share of thread 0's clock ticks per
+    part of the step, the counters, the busy blocks per launch (from each
+    window's start/end stamps) and the time per step."""
+    p = prof.double().sum(0).cpu()
+    ticks = {k: float(p[i]) for i, k in enumerate(slots[:len(p)])
+             if k in tick_slots}
+    total = float(p[slots.index("total")])
+    counts = {k: float(p[i]) for i, k in enumerate(slots[:len(p)])
+              if k not in tick_slots and k != "total"}
+    dur = (stamps[:, 1] - stamps[:, 0]).double()
+    busy = []
+    for lo, hi in launches:
+        span = float(stamps[lo:hi, 1].max() - stamps[lo:hi, 0].min())
+        busy.append(dict(windows=hi - lo, span_ms=span / 1e6,
+                         busy_blocks=float(dur[lo:hi].sum()) / span,
+                         busy_share_of_sms=float(dur[lo:hi].sum()) / span / n_sms))
+    n_steps = max(float(steps.double().sum()), 1.0)
+    n_fin = max(counts["steps_finish"], 1.0)
+    step_us = float(dur.sum()) / 1e3 / n_steps * (1.0 - ticks["setup"] / total)
+    return dict(
+        share={k: v / total for k, v in ticks.items()},
+        ticks_per_ns=total / float(dur.sum()),
+        window_us_mean=float(dur.mean()) / 1e3,
+        step_us_with_setup=float(dur.sum()) / 1e3 / n_steps, step_us=step_us,
+        longest_chain_floor_ms=int(steps.max()) * step_us / 1e3,
+        steps=dict(apparent=counts["steps_app"], stored=counts["steps_stored"],
+                   finish=counts["steps_finish"]),
+        words=dict(xor=counts["xor_words"], store=counts["store_words"],
+                   extent_per_stored_column=counts["extent_words"] / n_fin,
+                   nnz_per_stored_column=counts["nnz_words"] / n_fin),
+        launches=busy,
+        busy_share_of_sms=float(dur.sum()) / sum(b["span_ms"] for b in busy)
+        / 1e6 / n_sms)
+
+
 def check_kernel(dm, n_pts, n, na_max, step_budget):
-    """Kernel vs plain reduction on the same phase-1 operands, in the main
-    path's window chunks.  Returns a dict of the comparison, the timings and
-    the two terms of the bound."""
+    """Kernel vs plain reduction on the same phase-1 operands, phase 1 in
+    the main path's window chunks and the kernel once per chunk, as
+    `h1_diagrams_cuda` runs them.  Returns a dict of the comparison, the
+    timings, the two terms of the bound and the instrumented build's
+    reading."""
     import torch
 
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
 
-    na_eff = min(na_max, n * (n - 1) // 2)
-    chunk = HC.window_chunk(n, na_max)
+    m = n * (n - 1) // 2
+    na_eff = min(na_max, m)
+    chunk = HC.phase1_chunk(n)
     chunks = []
     for c in range(0, dm.shape[0], chunk):
         npc = None if n_pts is None else n_pts[c:c + chunk]
@@ -127,15 +174,26 @@ def check_kernel(dm, n_pts, n, na_max, step_budget):
     torch.cuda.synchronize()
 
     # the whole wrapper on the kernel, against the plain reduction (timed,
-    # counting the words of work each window needs) and the same bar
-    # extraction
+    # counting the words of work each window needs; its dense bool columns
+    # bound its own chunks) and the same bar extraction
+    launches0 = HC.h1_diagrams_cuda.launches
     out_k = HC.h1_diagrams_cuda(dm, n_pts, n=n, thresh=2.0, na_max=na_max,
                                 h1_max=na_max, step_budget=step_budget)
+    launches = HC.h1_diagrams_cuda.launches - launches0
     word_ops = [torch.zeros(ph["m_cx"].shape[0], dtype=torch.int64,
                             device=dm.device) for ph, _ in chunks]
-    red, plain_ms = wall_ms(lambda: [
-        H.reduce_plain(*ins, n=n, step_budget=step_budget, word_ops=w)
-        for (_, ins), w in zip(chunks, word_ops)])
+    sub = max(1, PLAIN_STORED_BYTES // (na_eff * (m * n + 1)))
+
+    def run_plain():
+        outs = []
+        for (_, ins), w in zip(chunks, word_ops):
+            parts = [H.reduce_plain(*(t[c:c + sub] for t in ins), n=n,
+                                    step_budget=step_budget, word_ops=w[c:c + sub])
+                     for c in range(0, w.shape[0], sub)]
+            outs.append([torch.cat(x) for x in zip(*parts)])
+        return outs
+
+    red, plain_ms = wall_ms(run_plain)
     outs = [H._extract_bars(*r, ph, n, na_max) for r, (ph, _) in zip(red, chunks)]
     out_p = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     mismatched = [k for k in out_k if not torch.equal(out_k[k], out_p[k])]
@@ -155,19 +213,59 @@ def check_kernel(dm, n_pts, n, na_max, step_budget):
     run_kernel()                                    # warm
     ms = cuda_ms(run_kernel, reps=3)
 
+    # the instrumented build on the same operands: same outputs, and where
+    # the step's time goes
+    prof, stamps, bounds, lo = [], [], [], 0
+    for (_, ins), r in zip(chunks, red):
+        got = HC.reduce_cuda_profiled(*ins, n=n, step_budget=step_budget)
+        if not all(torch.equal(a, b) for a, b in zip(got[:3], r)):
+            mismatched.append("instrumented build")
+        prof.append(got[3])
+        stamps.append(got[4])
+        bounds.append((lo, lo + got[3].shape[0]))
+        lo = bounds[-1][1]
+    n_sms = torch.cuda.get_device_properties(dm.device).multi_processor_count
+    phases = profile_reading(torch.cat(prof), torch.cat(stamps), out_k["steps"],
+                             bounds, n_sms, HC.PROFILE_SLOTS, HC.PROFILE_TICKS)
+
     # bound: operands read once + outputs written once over HBM, against
     # one int32 operation per column word the data needs (word_ops)
     steps = out_k["steps"].to(torch.float64)
     in_bytes = sum(t.numel() * t.element_size() for _, ins in chunks for t in ins)
     out_bytes = dm.shape[0] * (na_eff + 2) * 4
     ops = float(sum(int(w.sum()) for w in word_ops))
-    return dict(n=n, windows=int(dm.shape[0]), chunks=len(chunks),
+    plan = HC.kernel_plan(n, na_eff, min(chunk, dm.shape[0]),
+                          HC.blocks_per_sm(n), n_sms)
+    return dict(n=n, windows=int(dm.shape[0]), launches=launches, plan=plan,
                 mismatched=mismatched, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, word_ops=ops,
+                plain_ms=plain_ms, word_ops=ops, phases=phases,
                 t_bytes=(in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
                 t_ops=ops / INT32_OPS_PER_S * 1e3,
                 steps_mean=float(steps.mean()), steps_max=int(steps.max()),
-                overflow=int(out_k["overflow"].sum()))
+                overflow=int(out_k["overflow"].sum()),
+                no_creator=int((out_k["n_na"] == 0).sum()))
+
+
+def ragged_clouds(dev, n_windows: int = 6000, n: int = 24, seed: int = 0):
+    """Correlation-distance clouds of 1 to n smoothed random channels
+    (padding points at distance 9, beyond the threshold), made on `dev` from
+    a seed: the windows a main-path batch does not have (none to a few
+    creators, far more windows than blocks that can be resident)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n_windows, n, 131), generator=gen, device=dev)
+    x = torch.nn.functional.avg_pool1d(x, 12, stride=1)
+    x = x - x.mean(-1, keepdim=True)
+    x = x / x.norm(dim=-1, keepdim=True)
+    dm = torch.sqrt((2 * (1 - (x @ x.transpose(1, 2)).clamp(-1, 1))).clamp(min=0))
+    dm = torch.maximum(dm, dm.transpose(1, 2))
+    sizes = torch.tensor([1, 2, 3, n // 2, n - 4, n], device=dev)
+    n_pts = sizes[torch.randint(len(sizes), (n_windows,), generator=gen, device=dev)]
+    pad = torch.arange(n, device=dev)[None, :] >= n_pts[:, None]
+    dm = torch.where(pad[:, :, None] | pad[:, None, :], 9.0, dm)
+    dm = dm * (1.0 - torch.eye(n, device=dev))
+    return dm.float().contiguous(), n_pts.to(torch.int32)
 
 
 def main_path(batch, mis, cfg, dev):
@@ -289,7 +387,7 @@ def main() -> int:
 
     # ── phase 2: build ──
     t0 = time.perf_counter()
-    HC.build(verbose=True)
+    HC.build_all((False, True), verbose=True)
     HC._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{HC.build_seconds if HC.build_seconds is not None else 'cached'})",
@@ -308,24 +406,46 @@ def main() -> int:
 
     # ── phase 3: kernel vs plain on the card ──
     d47, d124, npts = stage_inputs(batch, cfg, dev)
+    dm24, npts24 = ragged_clouds(dev)
     checks = {}
     for name, (dm, np_, n, na, budget) in {
             "n47": (d47, None, 47, 128, 8192),
-            "n124": (d124, npts, 124, 96, 8192)}.items():
+            "n124": (d124, npts, 124, 96, 8192),
+            "ragged": (dm24, npts24, 24, 64, 32)}.items():
         r = check_kernel(dm, np_, n, na, budget)
         checks[name] = r
-        print(f"kernel vs plain n={n}: {r['windows']} windows in {r['chunks']} "
-              f"launch(es), mismatched={r['mismatched']}, "
+        ph = r["phases"]
+        print(f"kernel vs plain {name} (n={n}): {r['windows']} windows in "
+              f"{r['launches']} launch(es) of {r['plan']['grid']} blocks x "
+              f"{r['plan']['threads']} threads, arena "
+              f"{r['plan']['arena_bytes'] / 2**20:.0f} MiB, "
+              f"mismatched={r['mismatched']}, "
               f"max_abs_err={r['max_abs_err']}, kernel {r['ms']:.3f} ms "
               f"({r['ms'] / r['windows'] * 1e3:.2f} us/window), plain "
               f"{r['plain_ms']:.1f} ms, bound bytes {r['t_bytes']:.4f} ms / "
               f"operations {r['t_ops']:.4f} ms ({r['word_ops']:.0f} word ops), "
-              f"steps/window mean {r['steps_mean']:.1f} "
-              f"max {r['steps_max']}, overflow {r['overflow']}", flush=True)
+              f"steps/window mean {r['steps_mean']:.1f} max {r['steps_max']}, "
+              f"{ph['step_us']:.3f} us/step, longest-chain floor "
+              f"{ph['longest_chain_floor_ms']:.3f} ms, overflow {r['overflow']}, "
+              f"windows without creators {r['no_creator']}", flush=True)
         if r["mismatched"]:
-            print(f"FAIL: kernel and plain disagree at n={n} on "
+            print(f"FAIL: kernel and plain disagree at {name} (n={n}) on "
                   f"{r['mismatched']}", file=sys.stderr)
             return 1
+    rag = checks["ragged"]
+    if not (rag["plan"]["grid"] < rag["windows"] and rag["no_creator"] > 0
+            and 0 < rag["overflow"] < rag["windows"]):
+        print("FAIL: the ragged case does not cover slot reuse, windows "
+              "without creators and a mix of finished and overflowed windows",
+              file=sys.stderr)
+        return 1
+    print("kernel phases (share of thread 0's clock ticks, instrumented build): "
+          + json.dumps({k: dict(
+              share={p: round(v, 4) for p, v in checks[k]["phases"]["share"].items()},
+              step_us=checks[k]["phases"]["step_us"],
+              busy_share_of_sms=checks[k]["phases"]["busy_share_of_sms"],
+              words=checks[k]["phases"]["words"]) for k in ("n47", "n124")}),
+          flush=True)
 
     # ── phase 4: the main path, its comparison stage's parts timed ──
     main_path(batch, mis, cfg, dev)               # warm-up (cuFFT plans etc.)
@@ -397,6 +517,8 @@ def main() -> int:
         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
         by_n={f"n={r['n']}": dict(
             windows=r["windows"], ms=r["ms"], plain_ms=r["plain_ms"],
+            stage=STAGE_OF_N[r["n"]], stage_launches=launches[STAGE_OF_N[r["n"]]],
+            longest_chain_floor_ms=r["phases"]["longest_chain_floor_ms"],
             bound_ms=max(r["t_bytes"], r["t_ops"]), word_ops=r["word_ops"],
             steps_mean=r["steps_mean"], steps_max=r["steps_max"])
               for r in (r47, r124)},

@@ -2,16 +2,20 @@
 
 Kernel: `csrc/h1_reduce.cu` (sm_90a), the counterpart of the reference's
 Pallas TPU kernel `tda_eeg_audio_tpu/ops/homology_pallas.py::_reduce_kernel`
-(launched by `h1_diagrams_pallas`).  One thread block reduces one window:
-the working column lives in shared memory, finished columns in a global
-arena allocated here.
+(launched by `h1_diagrams_pallas`).  One launch reduces all windows of a
+call: persistent blocks take windows from a device counter, each block
+keeping one window's operands, working column and column summary in shared
+memory and its finished columns as compact (word index, word) lists in its
+slot of a global arena allocated here.
 
-What bounds it on an H100: each reduction step is a dependent chain of
-block-wide reductions (pivot min → claim lookup → XOR), so a window's time
-is its step count times the step latency — not bytes, not arithmetic.  The
-design answers with many independent windows in flight (one block per
-window over the grid, up to 132 SMs busy) rather than interleaved chains
-inside a window.
+What bounds it on an H100: each reduction step is a dependent chain (pivot
+→ apparent/claim lookup → XOR), so a window's time is its step count times
+the step latency — not bytes, not arithmetic.  The design answers with many
+independent windows in flight and a step whose every link is a
+shared-memory access; the source's header has the details.
+
+Every host-side decision is a pure function that runs without CUDA:
+`kernel_shape`, `kernel_plan`, `phase1_chunk`.
 
 Phase 1 (edge ranks, forest/H0, apparent sieve, creator list) and bar
 extraction stay in PyTorch (`homology_h1`).  The plain PyTorch reduction
@@ -20,12 +24,15 @@ for a tensor on the CPU, and launches the kernel (or raises) for a CUDA
 tensor — there is no fallback.
 
 The kernel is compiled by `nvcc` at first use from the source in the
-checkout into `build/torch_kernels/` and bound with ctypes.
+checkout into `build/torch_kernels/` and bound with ctypes.  A second,
+instrumented build of the same source (`-DH1_PROFILE`, a library of its own)
+serves `reduce_cuda_profiled` only; no entry point of the port loads it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,18 +45,82 @@ import torch
 from .homology_h1 import (_extract_bars, _phase1, h1_diagrams_plain,
                           map_window_chunks, reduction_inputs)
 
-__all__ = ["h1_diagrams_cuda", "h1_diagrams_plain", "reduce_cuda", "build",
-           "window_chunk"]
+__all__ = ["h1_diagrams_cuda", "h1_diagrams_plain", "reduce_cuda",
+           "reduce_cuda_profiled", "build", "build_all", "kernel_shape",
+           "kernel_plan", "phase1_chunk", "PROFILE_SLOTS"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "h1_reduce.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-ARENA_BYTES = 1 << 31       # stored-column arena per launch
+ARENA_BYTES = 1 << 32       # stored-column arena of one launch, at most
+PHASE1_BYTES = 1 << 34      # phase 1's transient tensors of one chunk, at most
+SMEM_MAX = 232_448          # dynamic shared memory a block can have (sm_90)
 MAX_NA = 128
+MAX_N = 128
+# the instrumented build's int64 slots per window: clock64 ticks of thread 0
+# per part of the step, then counters
+PROFILE_SLOTS = ("setup", "pivot", "pivot_barrier", "claim", "cobd_xor",
+                 "stored_xor", "finish", "step_barrier", "total", "steps_app",
+                 "steps_stored", "steps_finish", "xor_words", "store_words",
+                 "extent_words", "nnz_words", "prepare", "finish_scan",
+                 "finish_move", "finish_barrier")
+PROFILE_TICKS = PROFILE_SLOTS[:8] + PROFILE_SLOTS[16:]
 
-_lib = None
+_libs = {}
 build_seconds = None        # wall time of the last nvcc build (None: cached)
+
+
+def _up16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def kernel_shape(n: int) -> dict:
+    """Block shape for n-point windows: threads per window (one window per
+    block at a time), the column's padded word count W (a multiple of 32, so
+    that every summary word covers whole column words) and the dynamic
+    shared-memory bytes (the layout of `csrc/h1_reduce.cu::layout`).
+
+    n ≤ 64 takes 64-thread blocks, so that an SM holds a dozen windows;
+    larger clouds fill most of an SM's shared memory with one column and
+    take 256 threads for the per-window operand load."""
+    if not 2 <= n <= MAX_N:
+        raise ValueError(f"kernel_shape: n={n} outside 2..{MAX_N}")
+    threads = 64 if n <= 64 else 256
+    m = n * (n - 1) // 2
+    W = -(-(m * n) // 1024) * 32
+    smem = (W * 4 + _up16(W // 32 * 4) + 128 + _up16(n * n * 2) + 3 * _up16(m)
+            + 4 * MAX_NA * 4 + 16)
+    if smem > SMEM_MAX:
+        raise ValueError(f"kernel_shape: n={n} needs {smem} B of shared memory")
+    return dict(threads=threads, W=W, smem_bytes=smem)
+
+
+def kernel_plan(n: int, na: int, n_windows: int, resident_blocks: int,
+                n_sms: int = 132) -> dict:
+    """Launch plan of one call: `kernel_shape` plus the grid and the arena.
+
+    resident_blocks: blocks of this shape one SM holds (the occupancy the
+    kernel's library reports).  The grid is the number of blocks resident at
+    once, capped by the windows and by the arena's bound; each block owns a
+    slot of na × W (index, word) entries, the most its columns can hold."""
+    if not 1 <= na <= MAX_NA:
+        raise ValueError(f"kernel_plan: na={na} outside 1..{MAX_NA}")
+    plan = kernel_shape(n)
+    slot_bytes = na * plan["W"] * 8
+    grid = max(1, min(n_windows, resident_blocks * n_sms,
+                      ARENA_BYTES // slot_bytes))
+    plan.update(grid=grid, slot_bytes=slot_bytes, arena_bytes=grid * slot_bytes)
+    return plan
+
+
+def phase1_chunk(n: int) -> int:
+    """Windows per `_phase1` call: its largest transients are the apparent
+    sieve's (B, m, n) tensors (an int32 gather, bool comparisons, the int32
+    first-vertex select): 8 bytes per (edge, vertex) reckoned, 6.5 measured
+    at n = 124 (`tools/h1_kernel_profile.py`)."""
+    m = n * (n - 1) // 2
+    return max(1, PHASE1_BYTES // (8 * m * n))
 
 
 def _nvcc() -> str:
@@ -60,46 +131,80 @@ def _nvcc() -> str:
     return path
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    global build_seconds
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def _start_build(profile: bool):
+    """(.so path, running nvcc or None if the library is already built)."""
+    flags = NVCC_FLAGS + (["-DH1_PROFILE"] if profile else [])
+    tag = hashlib.sha1(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     so = BUILD_DIR / f"libh1_reduce_{tag}.so"
     if so.exists():
-        return so
+        return so, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    build_seconds = time.perf_counter() - t0
-    if verbose:
-        print(res.stderr.strip())
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
+    return so, (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True), tmp)
+
+
+def _finish_build(so: Path, started, verbose: bool) -> Path:
+    if started is not None:
+        proc, tmp = started
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+        os.replace(tmp, so)
+        if verbose:
+            print(err.strip())
     return so
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def build(profile: bool = False, verbose: bool = False) -> Path:
+    """Compile the kernel (once per source content) and return the .so."""
+    return build_all((profile,), verbose)[0]
+
+
+def build_all(profiles=(False, True), verbose: bool = False):
+    """Compile the given builds side by side (one nvcc each); their .so's."""
+    global build_seconds
+    t0 = time.perf_counter()
+    started = [_start_build(p) for p in profiles]
+    sos = [_finish_build(so, st, verbose) for so, st in started]
+    if any(st is not None for _, st in started):
+        build_seconds = time.perf_counter() - t0
+    return sos
+
+
+def _load(profile: bool = False):
+    if profile not in _libs:
+        lib = ctypes.CDLL(str(build(profile)))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.h1_reduce_launch.argtypes = [P] * 9 + [I] * 6 + [P]
+        lib.h1_reduce_launch.argtypes = [P] * 12 + [I] * 8 + [P]
         lib.h1_reduce_launch.restype = I
-        _lib = lib
-    return _lib
+        lib.h1_reduce_blocks_per_sm.argtypes = [I, I]
+        lib.h1_reduce_blocks_per_sm.restype = I
+        lib.h1_reduce_smem_bytes.argtypes = [I, I]
+        lib.h1_reduce_smem_bytes.restype = I
+        _libs[profile] = lib
+    return _libs[profile]
 
 
-def reduce_cuda(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
-                step_budget: int):
-    """Launch the kernel on the reduction operands of `reduction_inputs`.
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(n: int, profile: bool = False) -> int:
+    """Blocks of `kernel_shape(n)` one SM holds, from the library; also
+    checks that the kernel lays out the bytes the plan reckons."""
+    lib, shape = _load(profile), kernel_shape(n)
+    threads = shape["threads"]
+    if lib.h1_reduce_smem_bytes(n, shape["W"]) != shape["smem_bytes"]:
+        raise RuntimeError("kernel_shape and csrc/h1_reduce.cu disagree on the "
+                           f"shared-memory layout at n={n}")
+    nb = lib.h1_reduce_blocks_per_sm(threads, shape["smem_bytes"])
+    if nb < 1:
+        raise RuntimeError(f"no block of {threads} threads, "
+                           f"{shape['smem_bytes']} B fits an SM (n={n})")
+    return nb
 
-    Same contract as `homology_h1.reduce_plain`: returns (pair_key (B, na)
-    int32, steps (B,) int32, overflow (B,) bool)."""
-    ins = (rank_mat, iu_r, ju_r, app_v, na_list, m_cx)
+
+def _reduce(ins, n: int, step_budget: int, profile: bool):
+    rank_mat, iu_r, ju_r, app_v, na_list, m_cx = ins
     B, na = na_list.shape
     m = iu_r.shape[1]
     dev = na_list.device
@@ -114,29 +219,52 @@ def reduce_cuda(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
         raise ValueError("reduce_cuda: inconsistent operand shapes")
     if na > MAX_NA:
         raise ValueError(f"reduce_cuda: na={na} > {MAX_NA}")
-    W = (m * n + 31) // 32
     pair = torch.empty((B, na), dtype=torch.int32, device=dev)
     stepinfo = torch.empty((B, 2), dtype=torch.int32, device=dev)
-    if B == 0:
-        return pair, stepinfo[:, 0], stepinfo[:, 1].bool()
-    stored = torch.empty((B, na, W), dtype=torch.int32, device=dev)
-    lib = _load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.h1_reduce_launch(*(t.data_ptr() for t in ins), stored.data_ptr(),
-                              pair.data_ptr(), stepinfo.data_ptr(),
-                              B, n, m, na, W, step_budget, stream)
-    if rc != 0:
-        raise RuntimeError(f"h1_reduce_launch failed: cudaError {rc}")
-    h1_diagrams_cuda.launches += 1
-    return pair, stepinfo[:, 0], stepinfo[:, 1].bool()
+    prof = stamps = None
+    if profile:
+        prof = torch.zeros((B, len(PROFILE_SLOTS)), dtype=torch.int64, device=dev)
+        stamps = torch.zeros((B, 3), dtype=torch.int64, device=dev)
+    if B > 0:
+        with torch.cuda.device(dev):
+            plan = kernel_plan(
+                n, na, B, blocks_per_sm(n, profile),
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            arena = torch.empty(plan["arena_bytes"] // 8, dtype=torch.int64,
+                                device=dev)
+            rc = _load(profile).h1_reduce_launch(
+                *(t.data_ptr() for t in ins), counter.data_ptr(), arena.data_ptr(), pair.data_ptr(),
+                stepinfo.data_ptr(), prof.data_ptr() if profile else None,
+                stamps.data_ptr() if profile else None, B, n, m, na, plan["W"],
+                step_budget, plan["threads"], plan["grid"],
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"h1_reduce_launch failed: cudaError {rc}")
+        if not profile:
+            h1_diagrams_cuda.launches += 1
+    return pair, stepinfo[:, 0], stepinfo[:, 1].bool(), prof, stamps
 
 
-def window_chunk(n: int, na_max: int) -> int:
-    """Windows per launch, so that the stored-column arena stays within
-    ARENA_BYTES."""
-    m = n * (n - 1) // 2
-    W = (m * n + 31) // 32
-    return max(1, ARENA_BYTES // (min(na_max, m) * W * 4))
+def reduce_cuda(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
+                step_budget: int):
+    """One launch of the kernel on the reduction operands of
+    `reduction_inputs`.
+
+    Same contract as `homology_h1.reduce_plain`: returns (pair_key (B, na)
+    int32, steps (B,) int32, overflow (B,) bool)."""
+    return _reduce((rank_mat, iu_r, ju_r, app_v, na_list, m_cx), n, step_budget,
+                   profile=False)[:3]
+
+
+def reduce_cuda_profiled(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
+                         step_budget: int):
+    """`reduce_cuda` through the instrumented build: also returns prof
+    (B, len(PROFILE_SLOTS)) int64 and stamps (B, 3) int64 = each window's
+    start and end (globaltimer, ns) and the SM it ran on.  For measurement
+    scripts; counts no launch."""
+    return _reduce((rank_mat, iu_r, ju_r, app_v, na_list, m_cx), n, step_budget,
+                   profile=True)
 
 
 def h1_diagrams_cuda(dm: torch.Tensor, n_pts=None, *, n: int, thresh: float,
@@ -145,7 +273,8 @@ def h1_diagrams_cuda(dm: torch.Tensor, n_pts=None, *, n: int, thresh: float,
 
     Same arguments and return contract as `homology_h1.h1_diagrams_plain`.
     A CPU tensor takes the plain PyTorch reduction; a CUDA tensor launches
-    the kernel, in window chunks that bound the stored-column arena."""
+    the kernel, once per `phase1_chunk(n)` windows (phase 1's memory bounds
+    the chunk, not the kernel's arena)."""
     if dm.device.type == "cpu":
         return h1_diagrams_plain(dm, n_pts, n=n, thresh=thresh, na_max=na_max,
                                  h1_max=h1_max, step_budget=step_budget)
@@ -164,7 +293,7 @@ def h1_diagrams_cuda(dm: torch.Tensor, n_pts=None, *, n: int, thresh: float,
                                        step_budget=step_budget)
         return _extract_bars(pair, steps, ovf, ph, n, h1_max)
 
-    return map_window_chunks(run, dm, n_pts, window_chunk(n, na_max))
+    return map_window_chunks(run, dm, n_pts, phase1_chunk(n))
 
 
 h1_diagrams_cuda.launches = 0

@@ -191,17 +191,40 @@ def test_cuda_wrapper_takes_plain_path_on_cpu():
     assert thc.h1_diagrams_cuda.launches == before
 
 
+def _card_case(case):
+    """Clouds on the card, n_pts, and the arguments of one kernel-vs-plain
+    case: the main path's shapes, then what they do not reach."""
+    from chip_smoke import ragged_clouds
+
+    rng = np.random.default_rng(9)
+    if case in ("n47", "n124", "single"):
+        n, na = (124, 96) if case == "n124" else (47, 128)
+        B = 1 if case == "single" else 8
+        dms = torch.as_tensor(_eeg_like(rng, B, n - 3, n, T=250), device="cuda")
+        n_pts = torch.full((B,), n - 3, dtype=torch.int32, device="cuda")
+        return dms, n_pts, dict(n=n, na_max=na, h1_max=na, step_budget=8192)
+    if case == "tied":
+        dms = torch.as_tensor(_grid(18, B=16, seed=5), device="cuda")
+        return dms, None, dict(n=18, na_max=64, h1_max=64, step_budget=2048)
+    # more windows than resident blocks, windows without creators, padded
+    # clouds, and a step budget that some windows exceed
+    dms, n_pts = ragged_clouds("cuda")
+    return dms, n_pts, dict(n=24, na_max=64, h1_max=64, step_budget=32)
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", ["n47", "n124", "ragged", "tied", "single"])
+def test_kernel_matches_plain_on_card(case):
     """On a CUDA card: kernel and plain reduction agree bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
-    rng = np.random.default_rng(9)
-    for n, na in ((47, 128), (124, 96)):
-        dms = torch.as_tensor(_eeg_like(rng, 8, n - 3, n, T=250), device="cuda")
-        n_pts = torch.full((8,), n - 3, dtype=torch.int32, device="cuda")
-        kw = dict(n=n, thresh=2.0, na_max=na, h1_max=na, step_budget=8192)
-        got = thc.h1_diagrams_cuda(dms, n_pts, **kw)
-        want = th1.h1_diagrams_plain(dms, n_pts, **kw)
-        for k in want:
-            assert torch.equal(got[k], want[k]), (n, k)
+    dms, n_pts, kw = _card_case(case)
+    before = thc.h1_diagrams_cuda.launches
+    got = thc.h1_diagrams_cuda(dms, n_pts, thresh=2.0, **kw)
+    assert thc.h1_diagrams_cuda.launches == before + 1
+    want = th1.h1_diagrams_plain(dms, n_pts, thresh=2.0, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), (case, k)
+    if case == "ragged":
+        assert 0 < int(got["overflow"].sum()) < len(dms)
+        assert int((got["n_na"] == 0).sum()) > 0

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where the H1 reduction kernel's time goes on the card, at the main
+path's shapes.
+
+    python3 tools/h1_kernel_profile.py [--reps 3] [--out FILE]
+
+Needs one CUDA card and nvcc.  Builds the kernel
+(`tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu`) and its instrumented twin
+(-DH1_PROFILE) side by side.  On the operands of one 16-recording study
+batch (3120 EEG windows at n = 47, 1200 Takens clouds at n = 124) it
+  * times phase 1 as the wrapper runs it, with its peak memory (what
+    `phase1_chunk` reckons with);
+  * holds the kernel and its instrumented twin against each other (pair
+    keys, steps, overflow: equal) and times the kernel by CUDA events;
+  * reads the instrumented build: the share of thread 0's clock ticks per
+    part of the step, the words moved by stored-column XORs and stores, the
+    nonzero words per stored column, and from each window's start/end stamps
+    the busy blocks over the launch and the time per step;
+  * list-schedules the measured window times on the kernel's grid in several
+    window orders (the most that handing windows out in another order than
+    the batch's could gain), with each key's correlation with the steps.
+One JSON line per reading; all of them also go to --out (default
+build/h1_kernel_profile.json).
+"""
+
+from __future__ import annotations
+
+import argparse
+import heapq
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+STEP_BUDGET = 8192
+SHAPES = {"n47": (47, 128), "n124": (124, 96)}
+
+
+def makespan_ms(dur_ns, key, grid: int) -> float:
+    """End of the last window when windows are handed to `grid` blocks in
+    descending order of key (stable), each block taking the next when free."""
+    import torch
+
+    free = [0.0] * grid
+    for i in torch.argsort(key, descending=True, stable=True).tolist():
+        heapq.heappush(free, heapq.heappop(free) + float(dur_ns[i]))
+    return max(free) / 1e6
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "build" / "h1_kernel_profile.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("h1_kernel_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import (B_REC, K_FEAT, card_line, cuda_ms, profile_reading,
+                            stage_inputs, wall_ms)
+    from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
+    from tda_eeg_audio_tpu_torch.io.synthetic import SynthDataset, load_batch
+    from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
+    from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
+
+    dev = torch.device("cuda")
+    out = [dict(card=card_line(), torch=torch.__version__)]
+    print(json.dumps(out[0]), flush=True)
+
+    def emit(**rec):
+        out.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    HC.build_all((False, True), verbose=True)
+    emit(build_s=HC.build_seconds)
+
+    cfg = DEFAULT_CONFIG
+    ds = SynthDataset(n_subjects=8, n_per_subject=1, cfg=cfg)
+    batch = load_batch(ds, list(range(B_REC)), K_FEAT, cfg)
+    d47, d124, npts = stage_inputs(batch, cfg, dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ok = True
+
+    for name, dm, n_pts in (("n47", d47, None), ("n124", d124, npts)):
+        n, na = SHAPES[name]
+        B = dm.shape[0]
+
+        phase1 = lambda: H._phase1(dm, n, 2.0, na, n_pts)
+        phase1()                                    # warm
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ph, ms_phase1 = wall_ms(phase1)
+        peak = torch.cuda.max_memory_allocated() - before
+        emit(shape=name, phase1=dict(
+            ms=ms_phase1, peak_bytes=peak, per_window_bytes=peak / B,
+            bytes_per_edge_vertex=peak / B / (n * n * (n - 1) // 2),
+            chunk_windows=HC.phase1_chunk(n)))
+        ins = H.reduction_inputs(ph)
+        del ph
+
+        run = lambda: HC.reduce_cuda(*ins, n=n, step_budget=STEP_BUDGET)
+        ref = run()
+        rn = HC.reduce_cuda_profiled(*ins, n=n, step_budget=STEP_BUDGET)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(rn[:3], ref))
+        ok &= equal
+        steps = ref[1]
+        plan = HC.kernel_plan(n, na, B, HC.blocks_per_sm(n), n_sms)
+        emit(shape=name, windows=B, plan=plan, instrumented_equal=equal,
+             kernel_ms=[cuda_ms(run, args.reps) for _ in range(2)],
+             steps_mean=float(steps.double().mean()), steps_max=int(steps.max()),
+             overflow=int(ref[2].sum()))
+        emit(shape=name, profile=profile_reading(
+            rn[3], rn[4], steps, [(0, B)], n_sms, HC.PROFILE_SLOTS,
+            HC.PROFILE_TICKS))
+
+        dur = (rn[4][:, 1] - rn[4][:, 0]).double().cpu()
+        keys = dict(window_order=-torch.arange(B).double(),
+                    creators=(ins[4] >= 0).sum(1).double().cpu(),
+                    edges_in_complex=ins[5].double().cpu(),
+                    measured_time=dur)
+        emit(shape=name, schedule_ms={k: makespan_ms(dur, v, plan["grid"])
+                                      for k, v in keys.items()},
+             mean_load_ms=float(dur.sum()) / plan["grid"] / 1e6,
+             longest_window_ms=float(dur.max()) / 1e6,
+             corr_with_steps={k: float(torch.corrcoef(torch.stack(
+                 [v, steps.double().cpu()]))[0, 1]) for k, v in keys.items()})
+
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(out, indent=1))
+    print(json.dumps(dict(ok=bool(ok))))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
