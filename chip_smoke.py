@@ -22,6 +22,17 @@ Phases, each fatal on failure:
      just after, the comparison stage's parts timed by its own spans, and
      check shapes, finiteness and launches;
   5. hold the CUDA run of a small batch against the CPU run (plain path);
+  6. the study runner at full width: 96 synthetic recordings (6 subjects ×
+     {slow, fast} × 8) generated into a device-resident store, then
+     `StudyRunner.compute_feature_dataset → run_comparison → run_control`
+     with the union bank on, per-stage seconds and kernel launches, the
+     counts of what the exact redo did, and checks of shapes, finiteness,
+     bank service and statistics;
+  7. one batch through `comparison_from_bank` and through
+     `comparison_program` on the card (integers and flags equal, floats
+     within phase 5's tolerances);
+  8. the exact redo on the card: one n = 47 batch through `run_tda` with an
+     arena so small that windows overflow, against the wide-arena run;
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package.
 """
@@ -32,7 +43,9 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 B_REC = 16          # recordings per batch
 K_FEAT = 39         # features-stage windows per band
@@ -85,14 +98,10 @@ def feature_distances(eeg, n_e, use_idx, cfg, n_win_max):
     import torch
 
     from tda_eeg_audio_tpu_torch.models import programs as P
-    from tda_eeg_audio_tpu_torch.ops import geometry as G
 
     use_idx = torch.as_tensor(use_idx, device=eeg.device).long()
-    wins, _ = P._banded_windows(eeg, n_e, cfg, n_win_max)
-    C, win = wins.shape[-2:]
-    sel = wins.gather(2, use_idx[:, :, :, None, None].expand(-1, -1, -1, C, win))
-    d = G.correlation_to_distance(G.correlation_matrix(sel), cfg.distance_method)
-    return d.reshape(-1, C, C).contiguous()
+    d, _ = P.eeg_window_distances(eeg, n_e, use_idx, cfg, n_win_max)
+    return d.reshape(-1, *d.shape[-2:]).contiguous()
 
 
 def stage_inputs(batch, cfg, dev):
@@ -298,6 +307,19 @@ def main_path(batch, mis, cfg, dev):
                 launches=launches)
 
 
+def float_ratio(got, ref, rtol):
+    """Largest |got − ref| / (1e-5 + rtol·|ref|) over finite entries (NaN
+    must sit at the same places); > 1 is a mismatch."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if not np.array_equal(np.isnan(got), np.isnan(ref)):
+        return float("inf")
+    both = np.isfinite(got) & np.isfinite(ref)
+    return float((np.abs(got - ref) / (1e-5 + rtol * np.abs(ref)))[both].max(
+        initial=0.0))
+
+
 def small_reference_check(dev, window_sec: float = 1.0, seed: int = 0):
     """A small batch through the slice on the card and on the CPU (plain
     reduction): floats within rtol 1e-4 / atol 1e-5 (the tiered Sinkhorn's
@@ -351,10 +373,8 @@ def small_reference_check(dev, window_sec: float = 1.0, seed: int = 0):
         g = got[k]
         if r.dtype.kind == "f":
             rtol = 2e-4 if k in ("w_h1", "w_h1_mis") else 1e-4
-            ok = np.allclose(g, r, rtol=rtol, atol=1e-5, equal_nan=True)
-            both = np.isfinite(g) & np.isfinite(r)
-            ratio[k] = float((np.abs(g - r) / (1e-5 + rtol * np.abs(r)))[both].max(
-                initial=0.0))
+            ratio[k] = float_ratio(g, r, rtol)
+            ok = ratio[k] <= 1.0
         else:
             ok = np.array_equal(g, r)
         if not ok:
@@ -363,6 +383,174 @@ def small_reference_check(dev, window_sec: float = 1.0, seed: int = 0):
                               torch.as_tensor(n_e, device=d).long(), use_idx,
                               cfg, n_win_max).cpu() for d in (dev, "cpu")]
     return bad, ratio, float((dist[0] - dist[1]).abs().max())
+
+
+def runner_phase(store, cfg, **runner_kw):
+    """The whole study on the store through the runner's three entry points,
+    each stage between two device synchronisations, the kernel's launch
+    count zeroed just before and read per stage.  Returns (report, problems)."""
+    import numpy as np
+
+    from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
+    from tda_eeg_audio_tpu_torch.models.study import BAND_NAMES, StudyRunner
+    from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+
+    n_rec = len(store)
+    secs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as td:
+        runner = StudyRunner(store, cfg, eeg_batch=B_REC, eeg_bank=True,
+                             results_dir=td, verbose=False, **runner_kw)
+        redone0 = run_tda.redone
+        h1_diagrams_cuda.launches = 0
+
+        def stage(name, fn):
+            before = h1_diagrams_cuda.launches
+            out, ms = wall_ms(fn)
+            secs[name] = ms / 1e3
+            launches[name] = h1_diagrams_cuda.launches - before
+            return out
+
+        X, y, subjects, filenames, meta = stage(
+            "features", runner.compute_feature_dataset)
+        cmp_out = stage("comparison",
+                        lambda: runner.run_comparison(n_permutations=1000))
+        ctl = stage("control", runner.run_control)
+        total = h1_diagrams_cuda.launches
+        artifacts = sorted(p.name for p in Path(td).iterdir())
+    rows = cmp_out["detailed_rows"]
+    problems = []
+    if X.shape != (n_rec, 220) or not np.isfinite(X).all():
+        problems.append(f"X shape {X.shape} or not finite")
+    if len(rows) != n_rec * 5:
+        problems.append(f"{len(rows)} detailed rows, expected {n_rec * 5}")
+    n_batches = -(-n_rec // B_REC)
+    if runner._bank_served != n_batches or runner._bank_fallback != 0:
+        problems.append(f"bank served {runner._bank_served} / fallback "
+                        f"{runner._bank_fallback}, expected {n_batches} / 0")
+    n_subj = len({s for _, s, _ in store.index})
+    for band in BAND_NAMES:
+        b, c = cmp_out["band_results"][band], ctl[band]
+        ps = [b.get(k) for k in ("wass_h0_p", "wass_h1_p", "wass_h1_perm_p",
+                                 "corr_p", "wass_h1_p_fdr")] + \
+             [c.get("p"), c.get("p_fdr")]
+        if b["n_subjects"] != n_subj or c.get("n") != n_subj or \
+                not all(p is not None and np.isfinite(p) for p in ps):
+            problems.append(f"band {band}: n {b['n_subjects']} / {c.get('n')}, "
+                            f"p-values {ps}")
+    if min(launches.values()) <= 0:
+        problems.append(f"kernel launches by stage {launches}")
+    if runner.redo_counts["control_deviants"] < 1:
+        problems.append("the control's exact redo did not run")
+    expect = {"eeg_audio_tda_comparison.json", "eeg_audio_tda_detailed.csv",
+              "matched_vs_mismatched.json"}
+    if set(artifacts) != expect:
+        problems.append(f"artifacts {artifacts}")
+    report = dict(recordings=n_rec, seconds=secs, launches=launches,
+                  launches_total=total, K=meta["K"],
+                  bank_served=runner._bank_served,
+                  bank_fallback=runner._bank_fallback,
+                  control_deviants_redone=runner.redo_counts["control_deviants"],
+                  overflow_recordings_redone=dict(
+                      features=runner.redo_counts["features"],
+                      comparison=runner.redo_counts["comparison"]),
+                  overflow_windows_redone=run_tda.redone - redone0,
+                  w_h1_p={b: cmp_out["band_results"][b]["wass_h1_p"]
+                          for b in BAND_NAMES},
+                  control_p={b: ctl[b]["p"] for b in BAND_NAMES})
+    return report, problems
+
+
+def bank_vs_in_call(store, cfg, **runner_kw):
+    """One batch (the store's first B_REC recordings) through the runner's
+    fused pass with the EEG side from the bank (`comparison_from_bank`) and
+    computed in the call (`comparison_program`).  Returns the mismatched
+    row fields and the largest error / tolerance per float field."""
+    from tda_eeg_audio_tpu_torch.io.device_store import DeviceStore
+    from tda_eeg_audio_tpu_torch.models.study import StudyRunner
+
+    sub = DeviceStore(store.eeg[:B_REC], store.audio[:B_REC], store.ns_e[:B_REC],
+                      store.ns_a[:B_REC], store.metas[:B_REC], store.index[:B_REC])
+    banked = StudyRunner(sub, cfg, eeg_batch=B_REC, eeg_bank=True, verbose=False,
+                         **runner_kw)
+    banked.compute_feature_dataset()
+    rows_b = banked._fused_rows()
+    rows_c = StudyRunner(sub, cfg, eeg_batch=B_REC, eeg_bank=False,
+                         verbose=False, **runner_kw)._fused_rows()
+    if banked._bank_served != 1 or banked._bank_fallback != 0:
+        return ["bank did not serve the batch"], {}
+    if len(rows_b) != len(rows_c) or len(rows_b) != B_REC * 5:
+        return [f"row counts {len(rows_b)} / {len(rows_c)}"], {}
+    bad, ratio = set(), {}
+    for rb, rc in zip(rows_b, rows_c):
+        for k, v in rc.items():
+            if isinstance(v, float):
+                rtol = 2e-4 if k in ("wasserstein_h1", "w_mismatched") else 1e-4
+                ratio[k] = max(ratio.get(k, 0.0), float_ratio(rb[k], v, rtol))
+                if ratio[k] > 1.0:
+                    bad.add(k)
+            elif rb[k] != v:
+                bad.add(k)
+    return sorted(bad), ratio
+
+
+def overflow_redo_check(d47, thresh: float, na: int = 8):
+    """`run_tda` on the n = 47 batch with an arena of `na` creators, too
+    small for most windows (they overflow and are recomputed on the host
+    engine), against the wide-arena kernel run.
+
+    On generic distances every creator yields a visible bar, so a window
+    that overflows the arena also has more than `na` bars and keeps its
+    first `na` columns after the redo.  Both paths emit a window's bars in
+    the same order, so (a) `run_tda`'s first `na` columns, H0 deaths and
+    counts must equal the wide run's everywhere, and (b) the engine's full
+    diagrams of the redone windows must equal the wide run's bar for bar."""
+    import numpy as np
+    import torch
+
+    from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
+    from tda_eeg_audio_tpu_torch.native.engine import rips_persistence_batch
+
+    wide = run_tda(d47, thresh, na_max=128)
+    if bool(wide["redone"].any()):
+        return dict(problem="the wide-arena run overflowed")
+    before = run_tda.redone
+    tight = run_tda(d47, thresh, na_max=na)
+    redone = tight["redone"]
+    bad = []
+    for k in ("births", "deaths"):
+        a = torch.where(tight["mask"], tight[k], 0.0)
+        b = torch.where(wide["mask"], wide[k], 0.0)[:, :na]
+        if not torch.equal(a, b):
+            bad.append(k)
+    if not torch.equal(tight["mask"], wide["mask"][:, :na]):
+        bad.append("mask")
+    inf = float("inf")
+    h0 = [torch.where(o["h0_mask"], o["h0_deaths"], inf).sort(dim=1).values
+          for o in (tight, wide)]
+    if not torch.equal(*h0):
+        bad.append("h0_deaths")
+    for k in ("n_essential", "n_comp"):
+        if not torch.equal(tight[k], wide[k]):
+            bad.append(k)
+    full = wide["mask"].sum(1) <= na
+    feat_err = float((tight["features"][full] - wide["features"][full]).abs().max()) \
+        if bool(full.any()) else 0.0
+    # (b) the engine's whole diagrams of the redone windows
+    idx = torch.nonzero(redone).squeeze(1)
+    host = rips_persistence_batch(d47[idx].cpu().numpy(), thresh=thresh,
+                                  max_bars=128)
+    want = {k: wide[k][idx].cpu().numpy() for k in ("births", "deaths", "mask")}
+    if not np.array_equal(host["mask"], want["mask"]):
+        bad.append("engine mask")
+    for k in ("births", "deaths"):
+        if not np.array_equal(np.where(host["mask"], host[k], 0.0),
+                              np.where(want["mask"], want[k], 0.0)):
+            bad.append(f"engine {k}")
+    return dict(na_max=na, windows=int(d47.shape[0]), redone=int(redone.sum()),
+                counted=run_tda.redone - before, mismatched=bad,
+                untruncated_windows=int(full.sum()),
+                engine_bars_compared=int(want["mask"].sum()),
+                feature_max_abs_err=feat_err)
 
 
 def main() -> int:
@@ -483,7 +671,8 @@ def main() -> int:
     print(f"overflow: features {int(res['ovf'].sum())}/{B_REC} recordings, "
           f"mismatch audio {int(mo['overflow'].sum())}/{n_cmp_win} windows, "
           f"comparison {int(out['overflow'].sum())}/{B_REC} recordings "
-          f"(counted, not redone)", flush=True)
+          f"(flags of the entry points; the runner redoes them, phase 6)",
+          flush=True)
     print(f"kernel launches on the main path: {total} (by stage {launches})",
           flush=True)
     print("comparison parts (wall ms, timed spans): " + json.dumps(
@@ -503,6 +692,45 @@ def main() -> int:
         print(f"FAIL: card and CPU runs disagree on {bad}", file=sys.stderr)
         return 1
 
+    # ── phase 6: the study runner, full width ──
+    from tda_eeg_audio_tpu_torch.io.device_store import build_synthetic_device
+
+    store, ingest_ms = wall_ms(lambda: build_synthetic_device(
+        n_subjects=6, n_per_subject=8, device=dev))
+    store_gb = (store.eeg.numel() + store.audio.numel()) * 4 / 1e9
+    # one recording's audio loses one window step (62 samples at 250 Hz), so
+    # its two sides count different windows and the control's exact per-side
+    # pairing runs on the card whatever the generated durations
+    cut = 10_937
+    store.audio[0, store.ns_a[0] - cut:store.ns_a[0]] = 0.0
+    store.ns_a[0] -= cut
+    report, problems = runner_phase(store, cfg)
+    runner_launches = report["launches_total"]
+    print(f"runner ({report['recordings']} recordings, store {store_gb:.2f} GB "
+          f"generated on the card in {ingest_ms / 1e3:.1f} s): "
+          + json.dumps(report), flush=True)
+    if problems:
+        print(f"FAIL: runner: {problems}", file=sys.stderr)
+        return 1
+
+    # ── phase 7: bank path against in-call path on the card ──
+    bad, ratio = bank_vs_in_call(store, cfg)
+    print(f"bank vs in-call path on the card: mismatched={bad}, largest error / "
+          f"tolerance {json.dumps({k: round(v, 3) for k, v in ratio.items()})}",
+          flush=True)
+    if bad:
+        print(f"FAIL: bank and in-call paths disagree on {bad}", file=sys.stderr)
+        return 1
+    del store
+
+    # ── phase 8: exact redo of overflowed windows on the card ──
+    redo = overflow_redo_check(d47, cfg.max_edge_length)
+    print("overflow redo (n=47): " + json.dumps(redo), flush=True)
+    if redo.get("problem") or redo["mismatched"] or redo["redone"] <= 0 \
+            or redo["counted"] != redo["redone"]:
+        print(f"FAIL: overflow redo: {redo}", file=sys.stderr)
+        return 1
+
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
     t_bytes = r47["t_bytes"] + r124["t_bytes"]
@@ -511,7 +739,9 @@ def main() -> int:
         name="h1_reduce", route="cuda",
         source="tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu",
         replaces="tda_eeg_audio_tpu/ops/homology_pallas.py:190",
-        launches=total, max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
+        launches=total + runner_launches,
+        launches_by_path=dict(one_batch=launches, runner=report["launches"]),
+        max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
         ms=r47["ms"] + r124["ms"], plain_ms=r47["plain_ms"] + r124["plain_ms"],
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,

@@ -4,8 +4,9 @@ The pipeline has no learned weights: its state is the configuration (the
 designed filter taps follow from it deterministically) and its data is the
 padded recording batch.  `config_from_jax` rebuilds the port's config from
 `dataclasses.asdict` of the reference one; `batch_from_numpy` turns the
-numpy arrays the reference programs are fed into device tensors, so both
-sides compute on identical inputs.
+numpy arrays the reference programs are fed into device tensors, and
+`store_from_numpy` the arrays of a reference device store into the port's,
+so both sides compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -49,3 +50,18 @@ def batch_from_numpy(eeg=None, n_e=None, audio=None, n_a=None, use_idx=None,
                          torch.as_tensor(d, device=dev, dtype=torch.float32),
                          torch.as_tensor(m, device=dev, dtype=torch.bool))
     return out
+
+
+def store_from_numpy(eeg, audio, ns_e, ns_a, metas, index, device=None):
+    """The arrays of a reference `DeviceStore` (as numpy: eeg (N, 47, T),
+    audio (N, T_a), true lengths, metas, and the dataset's index) → the
+    port's store on `device` (None = CUDA), so both runners compute on the
+    same recordings."""
+    from .io.device_store import DeviceStore
+
+    dev = resolve_device(device)
+    return DeviceStore(
+        torch.as_tensor(np.array(eeg, np.float32), device=dev),
+        torch.as_tensor(np.array(audio, np.float32), device=dev),
+        np.asarray(ns_e, np.int64), np.asarray(ns_a, np.int64),
+        [dict(m) for m in metas], [tuple(t) for t in index])

@@ -1,16 +1,16 @@
 """The study's device programs in PyTorch (counterpart of the reference's
-`models/programs.py`, slice: features stage, mismatch-audio diagrams and
-the in-call EEG↔audio comparison).
+`models/programs.py`): features stage (with the per-window diagram bank),
+mismatch-audio diagrams, and the EEG↔audio comparison with the EEG side
+computed in the call or gathered from the bank.
 
 Entry points (`eeg_feature_program`, `audio_h1_program`,
-`comparison_program`, `audio_takens_program`) take numpy arrays or tensors
-and a ``device`` (None = CUDA; ``"cpu"`` runs the plain PyTorch path).
-Every H1 computation goes through `h1_diagrams_routed`, which sends CUDA
-tensors to the hand-written kernel and CPU tensors to the plain reduction.
-
-Not ported yet: `comparison_from_bank` / `return_bank`, the staged
-per-window programs, the runner, and the exact host redo of overflowed
-windows (overflow is flagged and counted here, not redone).
+`comparison_program`, `comparison_from_bank`, `audio_takens_program`) take
+numpy arrays or tensors and a ``device`` (None = CUDA; ``"cpu"`` runs the
+plain PyTorch path).  Every H1 computation goes through
+`h1_diagrams_routed`, which sends CUDA tensors to the hand-written kernel
+and CPU tensors to the plain reduction.  Overflow is flagged here; the
+runner (`models/study.py`) redoes flagged recordings exactly through
+`models/homology_exec.run_tda`.
 """
 
 from __future__ import annotations
@@ -92,29 +92,45 @@ def window_tda_features(dm, thresh: float = 2.0, na_max: int = 128,
     return torch.stack([f_h0, f_h1], dim=1), out
 
 
+def eeg_window_distances(eeg, n_samples, use_idx, cfg, n_win_max: int):
+    """Filter bank → windows → the (B, 5, K) selected windows' correlation
+    distances.  eeg (B, 47, T_pad), n_samples (B,), use_idx (B, 5, K) tensors
+    on one device.  Returns (dist (B, 5, K, n, n), wins (B, 5, W, C, win))."""
+    wins, _ = _banded_windows(eeg, n_samples, cfg, n_win_max)
+    C, win = wins.shape[-2:]
+    sel = wins.gather(2, use_idx[:, :, :, None, None].expand(-1, -1, -1, C, win))
+    dist = tgeo.correlation_to_distance(tgeo.correlation_matrix(sel),
+                                        cfg.distance_method)
+    return dist, wins
+
+
 def eeg_feature_program(eeg, n_samples, use_idx, use_mask,
                         cfg: PipelineConfig = DEFAULT_CONFIG,
                         n_win_max: int = 90, K: int = 39,
                         na_max: int = 128, step_budget: int = 4096,
-                        return_dm0: bool = False, device=None):
+                        return_dm0: bool = False, return_bank: bool = False,
+                        device=None):
     """Features stage: padded EEG (B, 47, T_pad) → (B, 5, 2, 11, 2)
     aggregate of the 11 H0/H1 features over the K sampled windows per band
     (filter → window-select → corr → dist → exact H0/H1 → features →
     mean/std).  use_idx/use_mask: (B, 5, K) window sample.  Returns
     (agg, ovf (B,)) — ovf flags recordings with an overflowed used window —
     and, with return_dm0, the window-0 distance diagnostics (B, 5, 8)
-    between them.  The H1 wrapper chunks windows to bound its memory."""
+    between them.  The H1 wrapper chunks windows to bound its memory.
+
+    return_bank appends a dict of per-window diagrams of EVERY column
+    (mask=False columns included), packed as the comparison consumes them:
+    h1_b/h1_d/h1_m (B, 5·K, na_max) finite bars only, h0_d/h0_m
+    (B, 5·K, n−1), feats (B, 5·K, 2, 11), and ovf (B,), which flags a
+    truncated diagram on any column — such a row must not serve
+    `comparison_from_bank`."""
     dev = resolve_device(device)
     eeg = torch.as_tensor(eeg, device=dev, dtype=torch.float32)
     n_samples = torch.as_tensor(n_samples, device=dev).long()
     use_idx = torch.as_tensor(use_idx, device=dev).long()
     use_mask = torch.as_tensor(use_mask, device=dev, dtype=torch.bool)
     B = eeg.shape[0]
-    wins, _ = _banded_windows(eeg, n_samples, cfg, n_win_max)
-    C, win = wins.shape[-2:]
-    sel = wins.gather(2, use_idx[:, :, :, None, None].expand(-1, -1, -1, C, win))
-    dist = tgeo.correlation_to_distance(tgeo.correlation_matrix(sel),
-                                        cfg.distance_method)
+    dist, wins = eeg_window_distances(eeg, n_samples, use_idx, cfg, n_win_max)
     n = dist.shape[-1]
     feats, out = window_tda_features(dist.reshape(B * N_BANDS * K, n, n),
                                      thresh=cfg.max_edge_length, na_max=na_max,
@@ -123,11 +139,23 @@ def eeg_feature_program(eeg, n_samples, use_idx, use_mask,
     ovf_cols = out["overflow"].reshape(B, N_BANDS, K)
     ovf = (ovf_cols & use_mask).any(dim=2).any(dim=1)
     agg = aggregate_mean_std(feats, use_mask).reshape(B, N_BANDS, 2, 11, 2)
+    tail = ()
+    if return_bank:
+        M = N_BANDS * K
+        fin = out["mask"] & torch.isfinite(out["deaths"])
+        h0d = torch.where(torch.isfinite(out["h0_deaths"]), out["h0_deaths"], 0.0)
+        tail = (dict(h1_b=out["births"].reshape(B, M, -1),
+                     h1_d=torch.where(fin, out["deaths"], 0.0).reshape(B, M, -1),
+                     h1_m=fin.reshape(B, M, -1),
+                     h0_d=h0d.reshape(B, M, -1),
+                     h0_m=out["h0_mask"].reshape(B, M, -1),
+                     feats=feats.reshape(B, M, 2, 11),
+                     ovf=ovf_cols.any(dim=2).any(dim=1)),)
     if not return_dm0:
-        return agg, ovf
+        return (agg, ovf) + tail
     corr0 = tgeo.correlation_matrix(wins[:, :, 0])
     dm0 = tgeo.correlation_to_distance(corr0, cfg.distance_method)
-    return agg, _dm_diagnostics(dm0), ovf
+    return (agg, _dm_diagnostics(dm0), ovf) + tail
 
 
 def _dm_diagnostics(dm):
@@ -370,9 +398,62 @@ def comparison_program(eeg, n_e, audio, n_a, mis_h1, mis_n_win, mis_degen,
                             mis_h1, mis_n_win, mis_degen, K, B)
 
 
+def comparison_from_bank(e_bank, gidx, n_e, audio, n_a, mis_h1, mis_n_win,
+                         mis_degen, cfg: PipelineConfig = DEFAULT_CONFIG,
+                         n_win_max: int = 90, n_rs_max: int = 5900,
+                         K: int = 15, t_eeg_pad: int = 5800, device=None):
+    """`comparison_program` with the EEG side gathered from the features
+    stage's per-window diagram bank instead of recomputed.
+
+    e_bank: flat (R, ·) leaves h1_b/h1_d/h1_m/h0_d/h0_m/feats of
+    `eeg_feature_program(return_bank=True)`, R = bank rows · 5 · K_feat;
+    gidx: (B·5·K,) flat indices of each recording's paired windows (the
+    runner appends them to every bank row as mask=False columns).
+
+    The bank's H1 rows are as wide as the features stage's arena; they are
+    normalised to the in-call path's 96 columns — a wider row is sliced and
+    any bar beyond 96 flags the recording's `overflow` (the recordings the
+    in-call path would flag), a narrower row is zero-padded, because the
+    tiered Sinkhorn's widths follow the row width."""
+    dev = resolve_device(device)
+    gidx = torch.as_tensor(gidx, device=dev).long()
+    n_e = torch.as_tensor(n_e, device=dev).long()
+    audio = torch.as_tensor(audio, device=dev, dtype=torch.float32)
+    n_a = torch.as_tensor(n_a, device=dev).long()
+    mis_h1 = tuple(torch.as_tensor(x, device=dev) for x in mis_h1)
+    mis_n_win = torch.as_tensor(mis_n_win, device=dev).long()
+    mis_degen = torch.as_tensor(mis_degen, device=dev, dtype=torch.bool)
+    B = audio.shape[0]
+    n_win_e = window_count_program(n_e, cfg.win_samples, cfg.step_samples,
+                                   t_eeg_pad)
+    with span("audio_takens", dev):
+        aud = audio_takens_program(audio, n_a, cfg, n_rs_max, n_win_max, K,
+                                   n_win_cap=n_win_e, device=dev)
+    P = cfg.max_takens_points
+    with span("audio_diagrams", dev):
+        a_out = _diagrams_flat(aud["dm"].reshape(B, N_BANDS * K, P, P),
+                               aud["n_pts"].reshape(B, N_BANDS * K),
+                               cfg.max_edge_length, 96, 8192)
+    with span("bank_gather", dev):
+        g = {k: torch.as_tensor(e_bank[k], device=dev)[gidx]
+             for k in ("h1_b", "h1_d", "h1_m", "h0_d", "h0_m", "feats")}
+        Wb = g["h1_m"].shape[1]
+        if Wb < 96:
+            e1 = tuple(torch.nn.functional.pad(g[k], (0, 96 - Wb))
+                       for k in ("h1_b", "h1_d", "h1_m"))
+            e_ovf = torch.zeros(B, dtype=torch.bool, device=dev)
+        else:
+            e1 = (g["h1_b"][:, :96], g["h1_d"][:, :96], g["h1_m"][:, :96])
+            e_ovf = g["h1_m"][:, 96:].reshape(B, -1).any(dim=1)
+    return _comparison_tail(g["h0_d"], g["h0_m"], e1, g["feats"], e_ovf, aud,
+                            a_out, aud["wmask"], n_win_e, aud["n_win"],
+                            mis_h1, mis_n_win, mis_degen, K, B)
+
+
 def _comparison_tail(e0d, e0m, e1, e_feats, e_ovf, aud, a_out, kmask,
                      n_win_e, n_pair, mis_h1, mis_n_win, mis_degen, K, B):
-    """Wasserstein + window statistics of comparison_program."""
+    """Wasserstein + window statistics shared by `comparison_program` (EEG
+    diagrams computed in the call) and `comparison_from_bank` (gathered)."""
     dev = e0d.device
     _, a0d, a0m = _h0_pack(a_out)
     with span("h0_exact_dp", dev):
@@ -428,20 +509,23 @@ def unpack_comparison_outputs(flat: np.ndarray, B: int) -> dict:
     return out
 
 
-def pack_feature_outputs(agg, diag, ovf):
+def pack_feature_outputs(agg, diag, ovf, bank_ovf=None):
     """eeg_feature_program outputs → one flat float32 vector per batch."""
-    return torch.cat([agg.reshape(-1).to(torch.float32),
-                      diag.reshape(-1).to(torch.float32),
-                      ovf.reshape(-1).to(torch.float32)])
+    parts = [agg, diag, ovf] + ([] if bank_ovf is None else [bank_ovf])
+    return torch.cat([x.reshape(-1).to(torch.float32) for x in parts])
 
 
-def unpack_feature_outputs(flat: np.ndarray, B: int):
-    """(agg (B,5,2,11,2), diag (B,5,8), ovf (B,) bool) from the vector."""
+def unpack_feature_outputs(flat: np.ndarray, B: int, has_bank: bool = False):
+    """(agg (B,5,2,11,2), diag (B,5,8), ovf (B,) bool[, bank_ovf (B,) bool])
+    from the vector."""
     n_agg = B * N_BANDS * 2 * 11 * 2
     n_dg = B * N_BANDS * 8
     agg = flat[:n_agg].reshape(B, N_BANDS, 2, 11, 2)
     diag = flat[n_agg:n_agg + n_dg].reshape(B, N_BANDS, 8)
-    ovf = flat[n_agg + n_dg:n_agg + n_dg + B] > 0.5
+    off = n_agg + n_dg
+    ovf = flat[off:off + B] > 0.5
+    if has_bank:
+        return agg, diag, ovf, flat[off + B:off + 2 * B] > 0.5
     return agg, diag, ovf
 
 

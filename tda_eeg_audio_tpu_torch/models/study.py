@@ -1,0 +1,1137 @@
+"""The study runner: drives the batched programs of `models/programs.py`
+over a dataset into the study's three analyses and writes the artifacts in
+the reference's JSON/CSV schemas.
+
+  * `compute_feature_dataset` — X (N, 220), y, subjects, filenames, metadata
+  * `run_comparison` — EEG↔audio comparison → eeg_audio_tda_comparison.json,
+    eeg_audio_tda_detailed.csv
+  * `run_control` — matched vs mismatched control → matched_vs_mismatched.json
+
+Every window-level computation runs on the runner's device (CUDA unless
+the store or `device` says "cpu"); the host does batching, the exact
+per-side pairing of control deviants and JSON serialization.  Each stage
+reads its results back once, after its batch loop.  Recordings whose
+reduction overflowed (creator arena, step budget, bar count) are redone
+exactly through `homology_exec.run_tda`, whose flagged windows go to the
+host engine.
+
+Not ported: the `host_exact` Wasserstein backend, the staged non-device
+backend, multi-device sharding, `write_preprocessed` / `write_graphs`, the
+classification stage and the figures (the runner says so once when it
+writes artifacts).
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig, DEFAULT_CONFIG, BAND_NAMES, GOOD_ELECTRODES
+from ..io.synthetic import window_sample_indices
+from ..ops import stats as tstats
+from ..ops.features import aggregate_mean_std
+from ..ops.signal import resample_n_out
+from ..ops.wasserstein import (build_cost_matrix, sinkhorn_cost,
+                               wasserstein_h0_exact)
+from ..runtime import resolve_device
+from ..utils import logging as tlog
+from ..utils.validation import issues_from_diagnostics
+from . import homology_exec, programs
+from .classify import features_to_row
+
+BAND_NAMES = list(BAND_NAMES)
+N_BANDS = len(BAND_NAMES)
+
+K_CMP = 15          # windows per recording and band in the comparisons
+K_H1 = 128          # H1 diagram padding of the exact redo, both sides
+FEATS = ("mean_persistence", "total_persistence", "persistence_entropy",
+         "max_persistence", "n_features")
+# their columns among the 11 diagram features
+FEAT_COLS = {"mean_persistence": 6, "total_persistence": 9,
+             "persistence_entropy": 10, "max_persistence": 8, "n_features": 0}
+WASS_CHUNK = 512    # pairs per un-tiered Sinkhorn call
+
+
+def _ref_linspace_idx(n_win: int, k: int) -> np.ndarray:
+    """The reference's even window subsample, np.linspace(0, n − 1, k,
+    dtype=int): each side's own selection in the control."""
+    if n_win > k:
+        return np.linspace(0, n_win - 1, k).astype(np.int64)
+    return np.arange(max(n_win, 0), dtype=np.int64)
+
+
+def _paired_window_idx(n_pair: int, k: int) -> np.ndarray:
+    """Host replication of `audio_takens_program`'s paired window selection
+    over n_pair = min(n_win_eeg, n_win_audio) windows: the same float32
+    arithmetic in the same order, so these indices address exactly the
+    windows the device pairs."""
+    if n_pair <= k:
+        return np.minimum(np.arange(k), max(n_pair - 1, 0))
+    return (np.arange(k, dtype=np.float32) * np.float32(n_pair - 1)
+            / np.float32(k - 1)).astype(np.int64)
+
+
+class StudyRunner:
+    """Runs the study over a dataset of recordings: a device-resident
+    `io.device_store.DeviceStore` (the main path), or a host dataset with
+    `.index` and `.load(i)` that is staged batch by batch."""
+
+    def __init__(self, dataset, cfg: PipelineConfig = DEFAULT_CONFIG,
+                 eeg_batch: int = 16, results_dir: str | Path | None = None,
+                 verbose: bool = True, eeg_bank: bool = True,
+                 feature_na_max: int = 128, t_eeg_pad: int = 5800,
+                 t_audio_pad: int = 44100 * 24, n_rs_max: int = 5900,
+                 device=None):
+        if cfg.wasserstein_backend != "sinkhorn":
+            raise NotImplementedError(
+                "only wasserstein_backend='sinkhorn' is ported")
+        self.ds = dataset
+        self.cfg = cfg
+        self.eeg_batch = eeg_batch
+        self.results_dir = Path(results_dir) if results_dir else None
+        self.verbose = verbose
+        # eeg_bank: the comparison stage reuses the features stage's
+        # per-window EEG diagrams (programs.comparison_from_bank)
+        self.use_eeg_bank = bool(eeg_bank)
+        self._eeg_bank = None
+        # features-stage H1 arena width; windows beyond it overflow into the
+        # exact redo, so results never change with it
+        self.feature_na_max = feature_na_max
+        self.t_eeg_pad = t_eeg_pad
+        self.t_audio_pad = t_audio_pad
+        self.n_rs_max = n_rs_max
+        self.n_win_max = (t_eeg_pad - cfg.win_samples) // cfg.step_samples + 1
+        self.failed_files: list[tuple[str, str]] = []
+        self._failed_idx: set[int] = set()
+        self.store = dataset if hasattr(dataset, "batch") else None
+        if self.store is not None:
+            if device is not None and \
+                    resolve_device(device).type != self.store.device.type:
+                raise ValueError("device differs from the store's")
+            self.device = self.store.device
+            if tuple(self.store.eeg.shape[1:]) != (len(GOOD_ELECTRODES), t_eeg_pad) \
+                    or self.store.audio.shape[1] != t_audio_pad:
+                raise ValueError("the store's padded shapes differ from the "
+                                 "runner's t_eeg_pad / t_audio_pad")
+            for i, m in enumerate(self.store.metas):
+                if m.get("failed"):
+                    self._failed_idx.add(i)
+                    self.failed_files.append((m["filename"],
+                                              m.get("error", "load failed")))
+        else:
+            self.device = resolve_device(device)
+        self._fused_cache = None
+        self._bank_served = self._bank_fallback = 0
+        self._figures_note = False
+        # what the exact redo did, per stage (recordings), for reports
+        self.redo_counts = dict(features=0, comparison=0, control_deviants=0)
+
+    # ---------------- data staging ----------------
+
+    def _safe_load(self, i: int) -> dict:
+        """Per-file failure isolation: a recording that fails to load is
+        zeroed, marked failed and recorded in self.failed_files; callers
+        drop it from every artifact (window equalization, X rows, labels,
+        comparison rows), as the reference's per-file try/except does."""
+        try:
+            return self.ds.load(i)
+        except Exception as e:  # noqa: BLE001 — per-file isolation
+            fn, subj, cond = self.ds.index[i]
+            if i not in self._failed_idx:
+                self._failed_idx.add(i)
+                self.failed_files.append((fn, repr(e)))
+                tlog.LOGGER.event("load_failed", file=fn, condition=cond,
+                                  error=repr(e))
+            if self.verbose:
+                print(f"  LOAD FAILED {fn}: {e!r}")
+            return dict(eeg_raw=np.zeros((65, 250), np.float32),
+                        audio=np.zeros(44100, np.float32),
+                        filename=fn, subject=subj, condition=cond, failed=True)
+
+    def _rec_length(self, i: int) -> tuple[int, bool]:
+        """(n_eeg_samples, failed) without staging the waveforms."""
+        if self.store is not None:
+            return int(min(self.store.ns_e[i], self.t_eeg_pad)), \
+                bool(self.store.metas[i].get("failed"))
+        rec = self._safe_load(i)
+        if rec.get("failed"):
+            return 0, True
+        return min(rec["eeg_raw"].shape[1], self.t_eeg_pad), False
+
+    def _load_batch(self, idxs):
+        """(eeg (B, 47, t_eeg_pad), audio (B, t_audio_pad)) tensors on the
+        runner's device, host lengths ns_e / ns_a, metas.  Store mode slices
+        the device store; a host dataset is padded and uploaded."""
+        if self.store is not None:
+            return self.store.batch(idxs)
+        B = len(idxs)
+        eeg = np.zeros((B, len(GOOD_ELECTRODES), self.t_eeg_pad), np.float32)
+        audio = np.zeros((B, self.t_audio_pad), np.float32)
+        ns_e, ns_a, metas = np.zeros(B, np.int64), np.zeros(B, np.int64), []
+        for b, i in enumerate(idxs):
+            rec = self._safe_load(i)
+            e = rec["eeg_raw"][list(GOOD_ELECTRODES)]
+            ns_e[b] = min(e.shape[1], self.t_eeg_pad)
+            ns_a[b] = min(len(rec["audio"]), self.t_audio_pad)
+            eeg[b, :, :ns_e[b]] = e[:, :ns_e[b]]
+            audio[b, :ns_a[b]] = rec["audio"][:ns_a[b]]
+            metas.append(dict(filename=rec["filename"], subject=rec["subject"],
+                              condition=rec["condition"],
+                              failed=rec.get("failed", False)))
+        return (torch.as_tensor(eeg, device=self.device),
+                torch.as_tensor(audio, device=self.device), ns_e, ns_a, metas)
+
+    def _dev(self, a, dtype=None):
+        return torch.as_tensor(a, device=self.device, dtype=dtype)
+
+    # ---------------- stage: classification features ----------------
+
+    def _feature_window_sample(self, idxs, counts, K, Kx):
+        """(B, 5, Kx) md5-seeded window sample + mask; columns K..Kx (bank
+        mode) hold each recording's paired comparison windows, mask False."""
+        cfg = self.cfg
+        B = len(idxs)
+        use_idx = np.zeros((B, N_BANDS, Kx), np.int64)
+        use_mask = np.zeros((B, N_BANDS, Kx), bool)
+        for b, i in enumerate(idxs):
+            stem = self.ds.index[i][0].replace(".mat", "")
+            nw = counts[i]
+            for bd, band in enumerate(BAND_NAMES):
+                sel = window_sample_indices(stem, band, nw, min(K, nw),
+                                            cfg.window_sampling,
+                                            cfg.window_sample_seed)
+                use_idx[b, bd, :len(sel)] = sel
+                use_mask[b, bd, :len(sel)] = True
+            if Kx > K:
+                use_idx[b, :, K:] = self._paired_comp_indices(i, nw)
+        return use_idx, use_mask
+
+    def compute_feature_dataset(self, max_windows_per_band=None,
+                                batch_start: int | None = None,
+                                batch_end: int | None = None):
+        """X (N, 220), y, subjects, filenames, metadata — the features stage.
+
+        Window equalization "min" and the md5 window sample are the
+        reference's (scripts/tda_eeg_classification_v2.py:445-606).
+        batch_start / batch_end slice the ordered file list for job-level
+        sharding; the "min" equalization stays global so shards agree.
+        Failed and zero-window recordings get no row."""
+        cfg = self.cfg
+        win, step = cfg.win_samples, cfg.step_samples
+        by_name = lambda i: self.ds.index[i][0]  # noqa: E731
+        # reference order: sorted slow files, then sorted fast files
+        all_idx = [i for cond in ("slow", "fast") for i in sorted(
+            (i for i in range(len(self.ds)) if self.ds.index[i][2] == cond),
+            key=by_name)]
+
+        counts = {}
+        for i in all_idx:
+            n_e, failed = self._rec_length(i)
+            if not failed:      # a failed file must not collapse the min
+                counts[i] = max((n_e - win) // step + 1, 0)
+        skipped_zero = [self.ds.index[i][0] for i in all_idx
+                        if counts.get(i) == 0]
+        for fn_ in skipped_zero:
+            tlog.LOGGER.event("zero_window_skipped", file=fn_)
+        all_idx = [i for i in all_idx if counts.get(i, 0) > 0]
+        if not all_idx:
+            raise RuntimeError("no loadable recordings in dataset")
+        min_windows = min(counts[i] for i in all_idx)
+        if max_windows_per_band is None:
+            max_windows_per_band = (min_windows if cfg.equalize_windows
+                                    else None)
+        K = int(max_windows_per_band or max(counts.values()))
+        if batch_start is not None or batch_end is not None:
+            all_idx = all_idx[batch_start or 0:batch_end]
+
+        t0 = time.time()
+        with_bank = self.use_eeg_bank
+        # bank mode: the comparison's paired windows ride the features
+        # program as K_CMP extra mask=False columns, so the bank serves the
+        # comparison even where the md5 sample misses a paired window
+        Kx = K + K_CMP if with_bank else K
+        pending, bank_batches, bank_slot, n_rows = [], [], {}, 0
+        for b0 in range(0, len(all_idx), self.eeg_batch):
+            idxs = all_idx[b0:b0 + self.eeg_batch]
+            use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
+            eeg, _, ns_e, _, _ = self._load_batch(idxs)
+            outs = programs.eeg_feature_program(
+                eeg, ns_e, use_idx, use_mask, cfg, self.n_win_max, Kx,
+                na_max=self.feature_na_max, return_dm0=True,
+                return_bank=with_bank, device=self.device)
+            if with_bank:
+                bank = outs[3]
+                bank_ovf = bank.pop("ovf")
+                for b, i in enumerate(idxs):
+                    bank_slot[i] = n_rows + b
+                n_rows += len(idxs)
+                bank_batches.append(bank)
+                packed = programs.pack_feature_outputs(*outs[:3], bank_ovf)
+            else:
+                packed = programs.pack_feature_outputs(*outs[:3])
+            pending.append((packed, idxs))
+            if self.verbose:
+                print(f"  features: {b0 + len(idxs)}/{len(all_idx)} recordings "
+                      f"dispatched ({time.time() - t0:.0f}s)")
+
+        # the stage's one read-back
+        flat = torch.cat([p for p, _ in pending]).cpu().numpy()
+        X_rows, y, subjects, filenames, file_metadata = [], [], [], [], []
+        off = 0
+        for packed, idxs in pending:
+            n = packed.shape[0]
+            outs_h = programs.unpack_feature_outputs(flat[off:off + n], len(idxs),
+                                                     has_bank=with_bank)
+            off += n
+            agg, diag, ovf = outs_h[0].copy(), outs_h[1], outs_h[2]
+            for b, i in enumerate(idxs):
+                if i in self._failed_idx:   # failed on the batch's re-load
+                    continue
+                if with_bank and outs_h[3][b]:
+                    # a truncated diagram on ANY column (possibly a union
+                    # column outside `ovf`): the row cannot serve the
+                    # comparison; the feature aggregate is redone only when
+                    # a USED window overflowed
+                    bank_slot.pop(i, None)
+                if ovf[b]:
+                    if self.verbose:
+                        print("  features: overflow → exact redo "
+                              f"{self.ds.index[i][0]}")
+                    tlog.LOGGER.event("feature_overflow_redo",
+                                      file=self.ds.index[i][0])
+                    agg[b] = self._staged_feature_agg([i], counts, K)[0]
+                    self.redo_counts["features"] += 1
+                X_rows.append(features_to_row(agg[b]))
+                fn, subj, cond = self.ds.index[i]
+                y.append(0 if cond == "slow" else 1)
+                subjects.append(subj)
+                filenames.append(fn)
+                issues = [f"{band}: {x}" for bd, band in enumerate(BAND_NAMES)
+                          for x in issues_from_diagnostics(diag[b, bd])]
+                nw, used = counts[i], min(K, counts[i])
+                file_metadata.append(dict(
+                    filename=fn,
+                    n_windows={b_: nw for b_ in BAND_NAMES},
+                    n_windows_used={b_: used for b_ in BAND_NAMES},
+                    validation_issues=issues,
+                    window_sampling=cfg.window_sampling,
+                    max_windows_per_band=K,
+                    n_windows_total=nw * N_BANDS,
+                    n_windows_used_total=used * N_BANDS))
+        if with_bank and bank_batches:
+            self._eeg_bank = dict(batches=bank_batches, slot=bank_slot,
+                                  K=Kx, K_base=K, flat=None)
+        tlog.LOGGER.stage("features", time.time() - t0,
+                          items=len(all_idx) * N_BANDS * K,
+                          n_recordings=len(X_rows), K=K,
+                          n_failed=len(self.failed_files))
+        return (np.stack(X_rows), np.array(y), np.array(subjects), filenames,
+                dict(min_windows=min_windows, K=K,
+                     failed_files=[fn for fn, _ in self.failed_files],
+                     skipped_zero_window=skipped_zero,
+                     file_metadata=file_metadata))
+
+    def _staged_feature_agg(self, idxs, counts, K):
+        """(len(idxs), 5, 2, 11, 2) feature aggregate through `run_tda`,
+        which redoes overflowed windows on the host engine — for recordings
+        whose features-stage reduction overflowed."""
+        B = len(idxs)
+        use_idx, use_mask = self._feature_window_sample(idxs, counts, K, K)
+        eeg, _, ns_e, _, _ = self._load_batch(idxs)
+        dist, _ = programs.eeg_window_distances(
+            eeg, self._dev(ns_e), self._dev(use_idx), self.cfg, self.n_win_max)
+        n = dist.shape[-1]
+        tda = homology_exec.run_tda(dist.reshape(B * N_BANDS * K, n, n),
+                                    self.cfg.max_edge_length, na_max=128,
+                                    verbose=self.verbose)
+        agg = aggregate_mean_std(tda["features"].reshape(B, N_BANDS, K, 22),
+                                 self._dev(use_mask))
+        return agg.reshape(B, N_BANDS, 2, 11, 2).cpu().numpy()
+
+    # ---------------- exact diagrams for the redo paths ----------------
+
+    def _audio_clouds(self, audio, ns_a, n_win_cap=None):
+        aud = programs.audio_takens_program(
+            audio, ns_a, self.cfg, self.n_rs_max, self.n_win_max, K_CMP,
+            n_win_cap=n_win_cap, device=self.device)
+        P = self.cfg.max_takens_points
+        out = homology_exec.run_tda(
+            aud["dm"].reshape(-1, P, P), self.cfg.max_edge_length,
+            n_pts=aud["n_pts"].reshape(-1), step_budget=8192,
+            verbose=self.verbose)
+        return aud, out
+
+    def _eeg_clouds(self, eeg, ns_e, use_idx, n_win):
+        dist, _, _ = programs._pair_distance_program(
+            eeg, self._dev(ns_e), use_idx, n_win, self.cfg, K_CMP,
+            self.n_win_max)
+        n = dist.shape[-1]
+        return homology_exec.run_tda(dist.reshape(-1, n, n),
+                                     self.cfg.max_edge_length,
+                                     verbose=self.verbose)
+
+    def _comparison_diagrams(self, idxs):
+        """Per recording: EEG + audio diagrams on the ≤ 15 comparison
+        windows.  ONE index set over n_pair = min(eeg, audio) windows is
+        drawn inside the audio program (through n_win_cap) and reused for
+        the EEG side — the reference's paired selection
+        (tda_eeg_audio_comparison.py:72-80)."""
+        B = len(idxs)
+        eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+        cfg = self.cfg
+        n_win_e = programs.window_count_program(
+            self._dev(ns_e), cfg.win_samples, cfg.step_samples, eeg.shape[-1])
+        aud, aud_out = self._audio_clouds(audio, ns_a, n_win_cap=n_win_e)
+        eeg_out = self._eeg_clouds(eeg, ns_e, aud["use_idx"], aud["n_win"])
+        n_pair = aud["n_win"]
+        kmask = torch.arange(K_CMP, device=self.device)[None, :] < n_pair[:, None]
+        return dict(eeg=eeg_out, audio=aud_out, kmask=kmask, metas=metas,
+                    shape=(B, N_BANDS, K_CMP), tau=aud["tau"], n_pair=n_pair,
+                    degen=aud["n_pts"] < 3)
+
+    def _own_diagrams(self, idxs):
+        """EEG + audio H1 diagrams with per-side OWN window selections — the
+        control getters' semantics (matched_vs_mismatched.py:35-85): each
+        side subsamples over its own window count.  Nothing is paired here;
+        `_control_rows_exact` pairs positionally after compaction."""
+        B = len(idxs)
+        eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+        cfg = self.cfg
+        n_win_e = np.maximum(
+            (np.minimum(ns_e, eeg.shape[-1]) - cfg.win_samples)
+            // cfg.step_samples + 1, 0)
+        use_idx = np.zeros((B, K_CMP), np.int64)
+        for b in range(B):
+            sel = _ref_linspace_idx(int(n_win_e[b]), K_CMP)
+            use_idx[b, :len(sel)] = sel
+        eeg_out = self._eeg_clouds(eeg, ns_e, self._dev(use_idx),
+                                   self._dev(n_win_e))
+        aud, aud_out = self._audio_clouds(audio, ns_a)   # own window count
+        return dict(eeg=eeg_out, audio=aud_out, metas=metas,
+                    len_e=np.minimum(n_win_e, K_CMP),
+                    len_a=torch.clamp(aud["n_win"], max=K_CMP).cpu().numpy(),
+                    degen=(aud["n_pts"] < 3).cpu().numpy())
+
+    @staticmethod
+    def _h1_padded(out):
+        """H1 (births, deaths, mask) tensors padded to K_H1 columns, finite
+        bars only — the reference's safe_wasserstein cleanup."""
+        b, d = out["births"][:, :K_H1], out["deaths"][:, :K_H1]
+        m = out["mask"][:, :K_H1] & torch.isfinite(d)
+        d = torch.where(m, d, 0.0)
+        pad = (0, K_H1 - b.shape[1])
+        return tuple(torch.nn.functional.pad(x, pad) for x in (b, d, m))
+
+    def _mismatch_own_cache(self, mis_list):
+        """Audio H1 diagrams (own-count selection) of each unique mismatch
+        recording, computed once; a failed load maps to None, which yields
+        NaN mismatch values as in the reference."""
+        cache = {}
+        for b0 in range(0, len(mis_list), self.eeg_batch):
+            idxs = mis_list[b0:b0 + self.eeg_batch]
+            d = self._own_diagrams(idxs)
+            a_b, a_d, a_m = (x.cpu().numpy().reshape(len(idxs), N_BANDS, K_CMP, -1)
+                             for x in self._h1_padded(d["audio"]))
+            for b, i in enumerate(idxs):
+                cache[i] = None if d["metas"][b].get("failed") else dict(
+                    b=a_b[b], d=a_d[b], m=a_m[b], degen=d["degen"][b],
+                    len_a=int(d["len_a"][b]))
+        return cache
+
+    def _control_rows_exact(self, all_idx, mis_idx, mis_cache):
+        """Control rows with the reference's EXACT pairing
+        (matched_vs_mismatched.py:50-61,87-95): per-side window selections,
+        the audio's degenerate windows compacted out of its list (shifting
+        later pairings), positional pairing over min(len_eeg, len_audio),
+        and a nanmean of the per-pair W_H1.  mis_idx maps (subject,
+        condition) → the subject's first opposite-condition recording."""
+        rows = []
+        for b0 in range(0, len(all_idx), self.eeg_batch):
+            idxs = all_idx[b0:b0 + self.eeg_batch]
+            d = self._own_diagrams(idxs)
+            e_b, e_d, e_m = (x.cpu().numpy() for x in self._h1_padded(d["eeg"]))
+            a_b, a_d, a_m = (x.cpu().numpy() for x in self._h1_padded(d["audio"]))
+            pairs_e, groups, pend = [], [], []
+            pa = {"b": [], "d": [], "m": []}
+            for b, meta in enumerate(d["metas"]):
+                if meta.get("failed"):
+                    continue
+                mis = mis_cache.get(
+                    mis_idx.get((meta["subject"], meta["condition"])))
+                len_e = int(d["len_e"][b])
+                for bd, band in enumerate(BAND_NAMES):
+                    ridx = len(pend)
+                    pend.append(dict(subject=meta["subject"],
+                                     condition=meta["condition"], band=band,
+                                     filename=meta["filename"],
+                                     w_matched=np.nan, w_mismatched=np.nan))
+                    base = (b * N_BANDS + bd) * K_CMP
+                    comp = [j for j in range(int(d["len_a"][b]))
+                            if not d["degen"][b, bd, j]]
+                    for i in range(min(len_e, len(comp))):
+                        pairs_e.append(base + i)
+                        for k, arr in (("b", a_b), ("d", a_d), ("m", a_m)):
+                            pa[k].append(arr[base + comp[i]])
+                        groups.append((ridx, "w_matched"))
+                    if mis is not None:
+                        compm = [j for j in range(int(mis["len_a"]))
+                                 if not mis["degen"][bd, j]]
+                        for i in range(min(len_e, len(compm))):
+                            pairs_e.append(base + i)
+                            for k in ("b", "d", "m"):
+                                pa[k].append(mis[k][bd, compm[i]])
+                            groups.append((ridx, "w_mismatched"))
+            if pairs_e:
+                w = self._wass_chunks(
+                    *(self._dev(x[pairs_e]) for x in (e_b, e_d, e_m)),
+                    *(self._dev(np.stack(pa[k])) for k in ("b", "d", "m"))
+                ).cpu().numpy()
+                sums, cnts = defaultdict(float), defaultdict(int)
+                for key, val in zip(groups, w):
+                    if np.isfinite(val):          # reference nanmean
+                        sums[key] += float(val)
+                        cnts[key] += 1
+                for (ridx, key), c in cnts.items():
+                    pend[ridx][key] = sums[(ridx, key)] / c
+            rows.extend(pend)
+        return rows
+
+    # ---------------- Wasserstein between EEG and audio diagrams ----------------
+
+    def _wasserstein_h0h1(self, eeg_out, aud_out, pair_mask):
+        """W_H0 (exact DP) and W_H1 (un-tiered Sinkhorn) of window-paired
+        diagrams, flat (N,) tensors; NaN where pair_mask is False."""
+        def h0(out):
+            d = out["h0_deaths"]
+            return torch.where(torch.isfinite(d), d, 0.0), out["h0_mask"]
+
+        w_h0 = wasserstein_h0_exact(*h0(eeg_out), *h0(aud_out))
+        w_h1 = self._wass_chunks(*self._h1_padded(eeg_out),
+                                 *self._h1_padded(aud_out))
+        nan = torch.full_like(w_h0, float("nan"))
+        return torch.where(pair_mask, w_h0, nan), torch.where(pair_mask, w_h1, nan)
+
+    @staticmethod
+    def _wass_chunks(b1, d1, m1, b2, d2, m2):
+        """Sinkhorn Wasserstein (persim cost semantics) of (N, K) padded
+        diagram pairs at full width, WASS_CHUNK pairs per call."""
+        outs = [sinkhorn_cost(build_cost_matrix(
+            *(x[c:c + WASS_CHUNK] for x in (b1, d1, m1, b2, d2, m2))))
+            for c in range(0, b1.shape[0], WASS_CHUNK)]
+        return torch.cat(outs) if outs else b1.new_zeros(0)
+
+    # ---------------- the fused comparison pass ----------------
+
+    def _mismatch_index(self):
+        """(subject, condition) → index of the subject's FIRST
+        opposite-condition recording (matched_vs_mismatched.py:117-121)."""
+        by_subj = defaultdict(lambda: defaultdict(list))
+        for i in range(len(self.ds)):
+            fn, subj, cond = self.ds.index[i]
+            by_subj[subj][cond].append(i)
+        mis = {}
+        for subj, conds in by_subj.items():
+            for cond, opp in (("slow", "fast"), ("fast", "slow")):
+                if conds[opp]:
+                    mis[(subj, cond)] = min(conds[opp],
+                                            key=lambda i: self.ds.index[i][0])
+        return mis
+
+    def _mismatch_diagram_cache(self, mis_idx):
+        """Each unique mismatch recording's audio H1 diagrams, computed ONCE
+        (the reference recomputes the same file for every pairing).
+
+        Returns (bank, slot): bank["b"/"d"/"m"] are (U + 1, 5·K_CMP, H)
+        device tensors whose last row stays zero (the "no mismatch partner"
+        slot), bank["n_win"/"degen"] host arrays read back once; slot maps a
+        recording index to its row, failed recordings excluded."""
+        mis_list = sorted(set(mis_idx.values()))
+        WB = N_BANDS * K_CMP
+        parts = {k: [] for k in ("h1_b", "h1_d", "h1_m", "n_win", "degen",
+                                 "overflow")}
+        slot = {}
+        for b0 in range(0, len(mis_list), self.eeg_batch):
+            idxs = mis_list[b0:b0 + self.eeg_batch]
+            _, audio, _, ns_a, metas = self._load_batch(idxs)
+            out = programs.audio_h1_program(
+                audio, ns_a, self.cfg, self.n_rs_max, self.n_win_max, K_CMP,
+                device=self.device)
+            for k in ("h1_b", "h1_d", "h1_m"):
+                parts[k].append(out[k].reshape(len(idxs), WB, -1))
+            for k in ("n_win", "degen", "overflow"):
+                parts[k].append(out[k])
+            for b, i in enumerate(idxs):
+                if not metas[b].get("failed"):
+                    slot[i] = b0 + b
+        if not mis_list:
+            return None, {}
+        H = parts["h1_b"][0].shape[-1]
+
+        def with_zero_row(k, dtype):
+            return torch.cat(parts[k] + [torch.zeros((1, WB, H), dtype=dtype,
+                                                     device=self.device)])
+
+        n_ovf = int(torch.cat(parts["overflow"]).sum())
+        if n_ovf:
+            tlog.LOGGER.event("mismatch_cache_overflow", n_windows=n_ovf)
+        return dict(b=with_zero_row("h1_b", torch.float32),
+                    d=with_zero_row("h1_d", torch.float32),
+                    m=with_zero_row("h1_m", torch.bool),
+                    n_win=torch.cat(parts["n_win"]).cpu().numpy(),
+                    degen=torch.cat(parts["degen"]).cpu().numpy()), slot
+
+    def _bank_flat(self):
+        """The features stage's per-batch bank leaves as flat
+        (rows·5·K_feat, ·) device tensors, concatenated once, lazily."""
+        bk = self._eeg_bank
+        if bk["flat"] is None:
+            bk["flat"] = {
+                k: torch.cat([b[k] for b in bk["batches"]]).flatten(0, 1)
+                for k in ("h1_b", "h1_d", "h1_m", "h0_d", "h0_m", "feats")}
+            bk["batches"] = None      # free the un-flattened copies
+        return bk["flat"]
+
+    def _audio_length(self, i: int) -> int:
+        """True audio sample count (host side, capped at the pad)."""
+        if self.store is not None:
+            return int(min(self.store.ns_a[i], self.t_audio_pad))
+        return min(len(self._safe_load(i)["audio"]), self.t_audio_pad)
+
+    def _audio_window_count(self, i: int) -> int:
+        """Window count of recording i's audio envelope at the EEG rate."""
+        win, step = self.cfg.win_samples, self.cfg.step_samples
+        n_rs = int(resample_n_out(self._audio_length(i), self.cfg.fs_eeg,
+                                  self.cfg.fs_audio))
+        return max((n_rs - win) // step + 1, 0)
+
+    def _paired_comp_indices(self, i: int, nw: int) -> np.ndarray:
+        """(N_BANDS, K_CMP) paired window indices of recording i — the
+        comparison stage's selection, replicated on the host at features
+        time so the bank's union columns hold exactly the diagrams
+        `comparison_from_bank` will gather (the selection is the same for
+        every band)."""
+        comp = _paired_window_idx(min(self._audio_window_count(i), nw), K_CMP)
+        return np.broadcast_to(comp, (N_BANDS, K_CMP))
+
+    def _bank_gather_idx(self, idxs, metas):
+        """Flat bank indices serving a comparison batch, or None when a live
+        recording of the batch is missing from the bank (diagram overflow,
+        zero windows, outside a features shard): the caller then falls back
+        to `comparison_program` for the batch."""
+        bk = self._eeg_bank
+        Kx = bk["K"]
+        cols = bk["K_base"] + np.arange(K_CMP, dtype=np.int64)
+        gidx = np.zeros((len(idxs), N_BANDS, K_CMP), np.int64)
+        for b, meta in enumerate(metas):
+            if meta.get("failed"):
+                continue        # its rows are dropped; any index will do
+            row = bk["slot"].get(idxs[b])
+            if row is None:
+                return None
+            gidx[b] = (row * N_BANDS + np.arange(N_BANDS))[:, None] * Kx + cols
+        return gidx.reshape(-1)
+
+    def _fused_rows(self):
+        """One device pass over all recordings → the comparison + control
+        rows.  Wasserstein runs on the device (exact H0 DP, tiered Sinkhorn
+        for H1); the stage reads back one packed vector after its loop."""
+        if self._fused_cache is not None:
+            return self._fused_cache
+        cfg = self.cfg
+        mis_idx = self._mismatch_index()
+        t_mc = time.time()
+        bank, mis_slot = self._mismatch_diagram_cache(mis_idx)
+        tlog.LOGGER.stage("mismatch_cache", time.time() - t_mc,
+                          items=len(mis_slot))
+        WB = N_BANDS * K_CMP
+        if bank is None:     # no opposite-condition file anywhere
+            bank = dict(b=torch.zeros((1, WB, 96), device=self.device),
+                        d=torch.zeros((1, WB, 96), device=self.device),
+                        m=torch.zeros((1, WB, 96), dtype=torch.bool,
+                                      device=self.device),
+                        n_win=np.zeros(0, np.int64),
+                        degen=np.zeros((0, N_BANDS, K_CMP), bool))
+        zero_slot = bank["b"].shape[0] - 1
+        self._bank_served = self._bank_fallback = 0
+        t0 = time.time()
+        all_idx = list(range(len(self.ds)))
+        batches = []        # (packed, idxs, metas, has_mis, mis_degen)
+        for b0 in range(0, len(all_idx), self.eeg_batch):
+            idxs = all_idx[b0:b0 + self.eeg_batch]
+            eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+            B = len(idxs)
+            slots = np.full(B, zero_slot, np.int64)
+            mis_n_win = np.zeros(B, np.int64)
+            mis_degen = np.zeros((B, N_BANDS, K_CMP), bool)
+            has_mis = np.zeros(B, bool)
+            for b, i in enumerate(idxs):
+                fn, subj, cond = self.ds.index[i]
+                u = mis_slot.get(mis_idx.get((subj, cond)))
+                if u is not None:
+                    has_mis[b] = True
+                    slots[b] = u
+                    mis_n_win[b] = bank["n_win"][u]
+                    mis_degen[b] = bank["degen"][u]
+            slots_d = self._dev(slots)
+            mis_args = (tuple(bank[k][slots_d].flatten(0, 1) for k in "bdm"),
+                        mis_n_win, mis_degen)
+            gidx = (self._bank_gather_idx(idxs, metas)
+                    if self._eeg_bank is not None else None)
+            if self._eeg_bank is not None:
+                self._bank_served += gidx is not None
+                self._bank_fallback += gidx is None
+            if gidx is not None:
+                out = programs.comparison_from_bank(
+                    self._bank_flat(), gidx, ns_e, audio, ns_a, *mis_args, cfg,
+                    self.n_win_max, self.n_rs_max, K_CMP,
+                    t_eeg_pad=eeg.shape[-1], device=self.device)
+            else:
+                out = programs.comparison_program(
+                    eeg, ns_e, audio, ns_a, *mis_args, cfg, self.n_win_max,
+                    self.n_rs_max, K_CMP, device=self.device)
+            batches.append((programs.pack_comparison_outputs(out), idxs, metas,
+                            has_mis, mis_degen))
+            if self.verbose:
+                print(f"  fused compare: {b0 + len(idxs)}/{len(all_idx)} "
+                      f"dispatched ({time.time() - t0:.0f}s)")
+        flat_all = (torch.cat([b[0] for b in batches]).cpu().numpy()
+                    if batches else np.zeros(0, np.float32))
+        rows, off = [], 0
+        for packed, idxs, metas, has_mis, mis_degen in batches:
+            n = packed.shape[0]
+            out_h = programs.unpack_comparison_outputs(flat_all[off:off + n],
+                                                       len(idxs))
+            off += n
+            self._drain_fused(out_h, metas, has_mis, mis_degen, rows)
+        tlog.LOGGER.stage("fused_comparison", time.time() - t0,
+                          items=len(all_idx) * N_BANDS * K_CMP,
+                          n_mismatch_cached=len(mis_slot),
+                          bank_batches=self._bank_served,
+                          bank_fallback_batches=self._bank_fallback)
+        n_ovf = sum(1 for r in rows if r.get("overflow"))
+        if n_ovf:
+            tlog.LOGGER.event("comparison_overflow", n_rows=n_ovf)
+        self._fused_cache = rows
+        return rows
+
+    @staticmethod
+    def _drain_fused(out, metas, has_mis, mis_degen, rows):
+        for b, meta in enumerate(metas):
+            if meta.get("failed"):      # dropped, like the reference's failed list
+                continue
+            for bd, band in enumerate(BAND_NAMES):
+                row = dict(filename=meta["filename"],
+                           condition=meta["condition"],
+                           subject=meta["subject"], band=band,
+                           wasserstein_h0=float(out["w_h0"][b, bd]),
+                           wasserstein_h1=float(out["w_h1"][b, bd]),
+                           w_mismatched=(float(out["w_h1_mis"][b, bd])
+                                         if has_mis[b] else np.nan),
+                           n_windows=int(out["n_pair"][b]),
+                           tau=int(out["tau"][b, bd]),
+                           # control-deviance / overflow flags (internal —
+                           # not in the CSV schema)
+                           a_degen=bool(out["a_degen"][b, bd]),
+                           mis_degen=bool(has_mis[b] and mis_degen[b, bd].any()),
+                           overflow=bool(out["overflow"][b]))
+                for fi, fname in enumerate(FEATS):
+                    row[f"corr_{fname}_r"] = float(out["corr_r"][b, bd, fi])
+                    row[f"corr_{fname}_p"] = float(out["corr_p"][b, bd, fi])
+                rows.append(row)
+
+    # ---------------- analysis: EEG↔audio comparison ----------------
+
+    def run_comparison(self, n_permutations: int | None = None) -> dict:
+        """Hypothesis-2 analysis → the eeg_audio_tda_comparison.json schema.
+
+        Recordings flagged `overflow` by the fused pass are recomputed
+        through `_staged_comparison_rows` (exact diagrams); their flag stays
+        set so the control stage redoes them exactly too."""
+        n_perm = n_permutations or 1000
+        rows = [r for r in self._fused_rows() if r["n_windows"] > 0]
+        ovf_keys = sorted({(r["filename"], r["condition"])
+                           for r in rows if r.get("overflow")})
+        if ovf_keys:
+            if self.verbose:
+                print(f"  comparison: {len(ovf_keys)} overflow recordings → "
+                      "exact redo")
+            idx_map = {(fn, cond): i for i, (fn, subj, cond)
+                       in enumerate(self.ds.index)}
+            redo = {(r["filename"], r["condition"], r["band"]): r
+                    for r in self._staged_comparison_rows(
+                        [idx_map[k] for k in ovf_keys])}
+            self.redo_counts["comparison"] += len(ovf_keys)
+            for ri, r in enumerate(rows):
+                s = redo.get((r["filename"], r["condition"], r["band"]))
+                if s is not None:
+                    rows[ri] = {**r, **s, "overflow": True}
+        t_st = time.time()
+        out = self._comparison_stats(rows, n_perm)
+        tlog.LOGGER.stage("comparison_stats", time.time() - t_st,
+                          items=len(rows))
+        return out
+
+    def _staged_comparison_rows(self, all_idx) -> list[dict]:
+        """Comparison rows from exact diagrams (`run_tda`, overflowed
+        windows on the host engine) and the un-tiered Sinkhorn — the redo
+        path of recordings the fused pass flagged."""
+        rows = []
+        t0 = time.time()
+        for b0 in range(0, len(all_idx), self.eeg_batch):
+            idxs = all_idx[b0:b0 + self.eeg_batch]
+            d = self._comparison_diagrams(idxs)
+            B, NB, K = d["shape"]
+            # degenerate Takens windows (< 3 points) are skipped entirely by
+            # the reference: out of the Wasserstein means and the feature
+            # time series
+            km = d["kmask"][:, None, :].expand(B, NB, K) & ~d["degen"]
+            w_h0, w_h1 = self._wasserstein_h0h1(d["eeg"], d["audio"],
+                                                km.reshape(-1))
+            ef = d["eeg"]["features"].reshape(B, NB, K, 2, 11)[:, :, :, 1, :]
+            af = d["audio"]["features"].reshape(B, NB, K, 2, 11)[:, :, :, 1, :]
+            # the batch's one read-back
+            w_h0, w_h1, ef, af, km, n_pair, tau = (
+                x.cpu().numpy() for x in (
+                    w_h0.reshape(B, NB, K), w_h1.reshape(B, NB, K), ef, af, km,
+                    d["n_pair"], d["tau"]))
+            sp_a, sp_e, sp_m, sp_tgt = [], [], [], []
+            for b, meta in enumerate(d["metas"]):
+                if meta.get("failed"):
+                    continue
+                for bd, band in enumerate(BAND_NAMES):
+                    msk = km[b, bd]
+                    n_valid = int(msk.sum())
+                    if n_valid == 0:
+                        continue
+                    row = dict(filename=meta["filename"],
+                               condition=meta["condition"],
+                               subject=meta["subject"], band=band,
+                               wasserstein_h0=float(np.nanmean(w_h0[b, bd])),
+                               wasserstein_h1=float(np.nanmean(w_h1[b, bd])),
+                               # the reference reports len(idx), degenerate
+                               # windows included
+                               n_windows=int(min(n_pair[b], K)),
+                               tau=int(tau[b, bd]))
+                    for fname, fi in FEAT_COLS.items():
+                        a_ts, e_ts = af[b, bd, :, fi], ef[b, bd, :, fi]
+                        row[f"corr_{fname}_r"] = 0.0
+                        row[f"corr_{fname}_p"] = 1.0
+                        if (n_valid >= 5 and a_ts[msk].std() > 1e-10
+                                and e_ts[msk].std() > 1e-10):
+                            sp_tgt.append((row, fname))
+                            sp_a.append(a_ts)
+                            sp_e.append(e_ts)
+                            sp_m.append(msk)
+                    rows.append(row)
+            if sp_tgt:      # one batched Spearman for the whole batch
+                r_all, p_all = tstats.spearmanr(
+                    self._dev(np.stack(sp_a)), self._dev(np.stack(sp_e)),
+                    self._dev(np.stack(sp_m)))
+                r_all, p_all = r_all.cpu().numpy(), p_all.cpu().numpy()
+                for ti, (row, fname) in enumerate(sp_tgt):
+                    row[f"corr_{fname}_r"] = float(r_all[ti])
+                    row[f"corr_{fname}_p"] = float(p_all[ti])
+            if self.verbose:
+                print(f"  comparison redo: {b0 + len(idxs)}/{len(all_idx)} "
+                      f"({time.time() - t0:.0f}s)")
+        return rows
+
+    @staticmethod
+    def _masked_delta_batch(deltas_by_band):
+        """{band: per-subject delta list} → masked (5, n_max) float32 batch
+        for the statistics, all bands in one call.  A band with < 5 subjects
+        gets a placeholder True at column 0 so the batched statistic stays
+        defined; callers skip those bands."""
+        n_max = max(1, *(len(v) for v in deltas_by_band.values()))
+        D = np.zeros((N_BANDS, n_max), np.float32)
+        M = np.zeros((N_BANDS, n_max), bool)
+        for bd, band in enumerate(BAND_NAMES):
+            v = deltas_by_band[band]
+            if len(v) < 5:
+                M[bd, 0] = True
+                continue
+            D[bd, :len(v)] = v
+            M[bd, :len(v)] = True
+        return D, M
+
+    def _stat(self, fn, D, M, **kw):
+        out = fn(self._dev(D), self._dev(M), **kw)
+        out = out[1] if isinstance(out, tuple) else out     # wilcoxon → p
+        return out.cpu().numpy()
+
+    def _fdr(self, pvals, alpha):
+        reject, p_fdr = tstats.bh_fdr(
+            self._dev(np.asarray(pvals, np.float32)[None]), alpha)
+        return reject[0].cpu().numpy(), p_fdr[0].cpu().numpy()
+
+    def _comparison_stats(self, rows, n_perm, signs=None) -> dict:
+        """Band statistics — reference tda_eeg_audio_comparison.py:161-221.
+        The sign-flip draws come from a generator seeded with 42 on the
+        runner's device, or from `signs` (n_perm, 5, n_max) when given."""
+        per = defaultdict(lambda: defaultdict(list))
+        for r in rows:
+            per[r["band"]][(r["subject"], r["condition"])].append(r)
+        band_data = {}
+        for band in BAND_NAMES:
+            means = {key: dict(
+                h0=np.mean([x["wasserstein_h0"] for x in rs]),
+                h1=np.mean([x["wasserstein_h1"] for x in rs]),
+                corr=np.mean([x["corr_mean_persistence_r"] for x in rs]))
+                for key, rs in per[band].items()}
+            subs = sorted({s for (s, c) in means if (s, "slow") in means
+                           and (s, "fast") in means})
+            band_data[band] = (means, subs)
+
+        def deltas(k):
+            return {band: [band_data[band][0][(s, "slow")][k]
+                           - band_data[band][0][(s, "fast")][k]
+                           for s in band_data[band][1]]
+                    for band in BAND_NAMES}
+
+        D0, M = self._masked_delta_batch(deltas("h0"))
+        D1, _ = self._masked_delta_batch(deltas("h1"))
+        DC, _ = self._masked_delta_batch(deltas("corr"))
+        p0_all = self._stat(tstats.wilcoxon, D0, M)
+        p1_all = self._stat(tstats.wilcoxon, D1, M)
+        pc_all = self._stat(tstats.wilcoxon, DC, M)
+        gen = None
+        if signs is None:
+            gen = torch.Generator(device=self.device).manual_seed(42)
+        perm_all = self._stat(tstats.sign_flip_pvalue, D1, M, n_perm=n_perm,
+                              signs=signs, generator=gen)
+        coh_all = self._stat(tstats.cohens_d_paired, D1, M)
+
+        stats_out, pvals_h1 = {}, []
+        for bd, band in enumerate(BAND_NAMES):
+            means, subs = band_data[band]
+            n = len(subs)
+            bs = {"n_subjects": n, "band": band}
+            if n >= 5:
+                d1 = D1[bd, :n]
+                mean_of = lambda k, c: float(np.mean(  # noqa: E731
+                    [means[(s, c)][k] for s in subs]))
+                bs.update({
+                    "wass_h0_slow": mean_of("h0", "slow"),
+                    "wass_h0_fast": mean_of("h0", "fast"),
+                    "wass_h0_p": float(p0_all[bd]),
+                    "wass_h1_slow": mean_of("h1", "slow"),
+                    "wass_h1_fast": mean_of("h1", "fast"),
+                    "wass_h1_p": float(p1_all[bd]),
+                    "wass_h1_perm_p": float(perm_all[bd]),
+                    "wass_h1_cohens_d": float(coh_all[bd]),
+                    "wass_h1_direction": ("slow < fast" if d1.mean() < 0
+                                          else "slow > fast"),
+                    "corr_slow": mean_of("corr", "slow"),
+                    "corr_fast": mean_of("corr", "fast"),
+                    "corr_p": float(pc_all[bd]),
+                    "n_slow_lower": int(np.sum(d1 < 0)),
+                })
+            stats_out[band] = bs
+            pvals_h1.append(bs.get("wass_h1_p", 1.0))
+        reject, p_fdr = self._fdr(pvals_h1, self.cfg.alpha)
+        for i, band in enumerate(BAND_NAMES):
+            stats_out[band]["wass_h1_p_fdr"] = float(p_fdr[i])
+            stats_out[band]["wass_h1_sig_fdr"] = bool(reject[i])
+
+        out = {
+            "analysis": "EEG-Audio Topological Comparison",
+            "method": "Wasserstein distance on persistence diagrams + temporal feature correlation",
+            "audio_construction": f"Takens embedding (dim={self.cfg.takens_dim}, tau=auto, subsample={self.cfg.takens_subsample})",
+            "eeg_construction": "Connectivity graph distance matrix (device pipeline)",
+            "n_recordings": len({r["filename"] + r["condition"] for r in rows}),
+            "n_subjects": len({r["subject"] for r in rows}),
+            "n_slow": len({r["filename"] for r in rows if r["condition"] == "slow"}),
+            "n_fast": len({r["filename"] for r in rows if r["condition"] == "fast"}),
+            "max_windows_per_recording": K_CMP,
+            "statistical_test": "Wilcoxon signed-rank (within-subject, paired)",
+            "multiple_comparison": "Benjamini-Hochberg FDR",
+            "band_results": stats_out,
+            "detailed_rows": rows,
+        }
+        if self.results_dir:
+            self.results_dir.mkdir(parents=True, exist_ok=True)
+            slim = {k: v for k, v in out.items() if k != "detailed_rows"}
+            (self.results_dir / "eeg_audio_tda_comparison.json").write_text(
+                json.dumps(slim, indent=2, default=str))
+            self._write_detailed_csv(rows)
+            self._note_no_figures()
+        return out
+
+    def _note_no_figures(self):
+        """Figures are not ported: say so once per runner, not silently."""
+        if not self._figures_note:
+            self._figures_note = True
+            tlog.LOGGER.event("figures_skipped", reason="not ported")
+            if self.verbose:
+                print("  figures skipped (figure generation is not ported)")
+
+    def _write_detailed_csv(self, rows):
+        """eeg_audio_tda_detailed.csv with the reference's exact column set;
+        internal row fields (w_mismatched, control-deviance flags) are not
+        serialized."""
+        if not rows:
+            return
+        keys = ["filename", "condition", "subject", "band",
+                "wasserstein_h0", "wasserstein_h1", "n_windows", "tau"]
+        keys += [k for k in rows[0] if k.startswith("corr_")]
+        with open(self.results_dir / "eeg_audio_tda_detailed.csv", "w",
+                  newline="") as f:
+            wr = csv.DictWriter(f, fieldnames=keys, extrasaction="ignore")
+            wr.writeheader()
+            wr.writerows(rows)
+
+    # ---------------- analysis: matched vs mismatched control ----------------
+
+    def run_control(self) -> dict:
+        """Matched/mismatched Wasserstein control → matched_vs_mismatched.json.
+
+        Reference scripts/matched_vs_mismatched.py: matched = EEG vs own
+        audio; mismatched = EEG vs the subject's FIRST recording of the
+        opposite condition; each side subsamples over its OWN window count
+        and pairing is positional after the audio's degenerate windows are
+        compacted out.  The fused comparison's per-recording values are
+        reused where they provably coincide with those semantics, and the
+        deviants are redone exactly (`_control_rows_exact`)."""
+        by_subj = defaultdict(lambda: defaultdict(list))
+        for i in range(len(self.ds)):
+            fn, subj, cond = self.ds.index[i]
+            by_subj[subj][cond].append(i)
+        for conds in by_subj.values():
+            for lst in conds.values():
+                lst.sort(key=lambda i: self.ds.index[i][0])
+        common = sorted(s for s in by_subj
+                        if by_subj[s]["slow"] and by_subj[s]["fast"])
+        mis_idx = {}
+        for s in common:
+            mis_idx[(s, "slow")] = by_subj[s]["fast"][0]
+            mis_idx[(s, "fast")] = by_subj[s]["slow"][0]
+        all_idx = [i for s in common for c in ("slow", "fast")
+                   for i in by_subj[s][c]]
+        t0 = time.time()
+        rows = self._control_rows_fused(all_idx, mis_idx)
+        tlog.LOGGER.stage("control_rows", time.time() - t0, items=len(rows))
+        return self._control_stats(rows)
+
+    def _control_rows_fused(self, all_idx, mis_idx):
+        """Control rows from the fused comparison pass + exact redo of
+        deviants.
+
+        The fused program draws ONE paired index set over min(eeg, audio)
+        windows and masks degenerates positionally; the reference control
+        selects per side and compacts.  The two coincide exactly when both
+        sides have equal window counts and no degenerate Takens window.
+        Recordings where they differ (unequal counts, any matched/mismatch
+        degenerate, overflow, zero windows on either side or in the
+        mismatch partner) go through `_control_rows_exact`."""
+        frows = self._fused_rows()
+        fmap = {(r["filename"], r["condition"], r["band"]): r for r in frows}
+        win, step = self.cfg.win_samples, self.cfg.step_samples
+        deviants, rows = [], []
+        for i in all_idx:
+            fn, subj, cond = self.ds.index[i]
+            n_e, failed = self._rec_length(i)
+            if failed:
+                continue
+            n_win_e = max((n_e - win) // step + 1, 0)
+            n_win_a = self._audio_window_count(i)
+            brows = [fmap.get((fn, cond, b)) for b in BAND_NAMES]
+            if any(r is None for r in brows):
+                continue          # dropped by the comparison (failed load)
+            degen = any(r.get("a_degen") or r.get("mis_degen")
+                        or r.get("overflow") for r in brows)
+            # zero-window cases go through the exact path: the fused
+            # program's empty-pair means are 0.0, where the reference
+            # nanmeans an empty pair list to NaN and drops the row
+            mi = mis_idx.get((subj, cond))
+            mis_zero = mi is not None and self._audio_window_count(mi) == 0
+            if n_win_e != n_win_a or degen or n_win_e == 0 or mis_zero:
+                deviants.append(i)
+                continue
+            rows.extend(dict(subject=subj, condition=cond, band=r["band"],
+                             filename=fn, w_matched=r["wasserstein_h1"],
+                             w_mismatched=r["w_mismatched"]) for r in brows)
+        self.redo_counts["control_deviants"] += len(deviants)
+        if deviants:
+            if self.verbose:
+                print(f"  control: {len(deviants)} deviant recordings → "
+                      "exact per-side pairing redo")
+            tlog.LOGGER.event("control_exact_redo", n=len(deviants))
+            keys = {(self.ds.index[i][1], self.ds.index[i][2]) for i in deviants}
+            mis_cache = self._mismatch_own_cache(
+                sorted({mis_idx[k] for k in keys if k in mis_idx}))
+            rows.extend(self._control_rows_exact(deviants, mis_idx, mis_cache))
+        return rows
+
+    def _control_stats(self, rows) -> dict:
+        def subject_means(groups):
+            return {s: (np.mean([x["w_matched"] for x in rs]),
+                        np.mean([x["w_mismatched"] for x in rs]))
+                    for s, rs in groups.items()}
+
+        finite = [r for r in rows if np.isfinite(r["w_matched"])
+                  and np.isfinite(r["w_mismatched"])]
+        per = defaultdict(lambda: defaultdict(list))
+        per_cond = defaultdict(lambda: defaultdict(list))
+        for r in finite:
+            per[r["band"]][r["subject"]].append(r)
+            per_cond[(r["band"], r["condition"])][r["subject"]].append(r)
+        band_sm = {band: subject_means(per[band]) for band in BAND_NAMES}
+        D, M = self._masked_delta_batch(
+            {band: [m - mm for (m, mm) in band_sm[band].values()]
+             for band in BAND_NAMES})
+        p_all = self._stat(tstats.wilcoxon, D, M)
+        d_all = self._stat(tstats.cohens_d_paired, D, M)
+
+        results, pvals = {}, []
+        for bd, band in enumerate(BAND_NAMES):
+            sm = band_sm[band]
+            n = len(sm)
+            if n < 5:
+                results[band] = {"n": n, "status": "insufficient"}
+                pvals.append(1.0)
+                continue
+            diff = D[bd, :n]
+            m_mean = float(np.mean([m for m, _ in sm.values()]))
+            mm_mean = float(np.mean([mm for _, mm in sm.values()]))
+            results[band] = {
+                "n": n, "w_matched": m_mean, "w_mismatched": mm_mean,
+                "direction": ("matched < mismatched" if m_mean < mm_mean
+                              else "matched > mismatched"),
+                "p": float(p_all[bd]),
+                "cohens_d": float(d_all[bd]),
+                "n_matched_lower": int(np.sum(diff < 0)),
+                "pct_matched_lower": float(np.sum(diff < 0) / n * 100),
+            }
+            pvals.append(results[band]["p"])
+        reject, p_fdr = self._fdr(pvals, 0.05)
+        for i, band in enumerate(BAND_NAMES):
+            if "p" in results[band]:
+                results[band]["p_fdr"] = float(p_fdr[i])
+                results[band]["sig_fdr"] = bool(reject[i])
+        # per band × condition breakdown (matched_vs_mismatched.py:232-253)
+        for band in BAND_NAMES:
+            by_cond = {}
+            for cond in ("slow", "fast"):
+                sm = subject_means(per_cond[(band, cond)])
+                if not sm:
+                    continue
+                diff = np.array([m - mm for (m, mm) in sm.values()])
+                by_cond[cond] = {
+                    "n": len(sm),
+                    "w_matched": float(np.mean([m for m, _ in sm.values()])),
+                    "w_mismatched": float(np.mean([mm for _, mm in sm.values()])),
+                    "n_matched_lower": int(np.sum(diff < 0)),
+                }
+            if by_cond:
+                results.setdefault(band, {})["by_condition"] = by_cond
+        if self.results_dir:
+            self.results_dir.mkdir(parents=True, exist_ok=True)
+            (self.results_dir / "matched_vs_mismatched.json").write_text(
+                json.dumps(results, indent=2, default=str))
+        return results

@@ -100,6 +100,17 @@ def design_resample_poly_filter(up: int = 250, down: int = 44100) -> tuple[np.nd
     return (h * up).astype(np.float64), up, down
 
 
+def resample_n_out(n_in, fs_out: int = 250, fs_in: int = 44100):
+    """Output length of `resample_poly_device` for a true input length n_in:
+    ceil(n_in·up/down), as scipy's resample_poly.  Host arithmetic on ints
+    or numpy arrays."""
+    from math import gcd
+
+    g = gcd(fs_out, fs_in)
+    up, down = fs_out // g, fs_in // g
+    return (np.asarray(n_in) * up + down - 1) // down
+
+
 # ─────────────────────────────────────────────────────────────────────────────
 # Tensor ops
 # ─────────────────────────────────────────────────────────────────────────────

@@ -1,7 +1,7 @@
 """Batched diagram Wasserstein distances (counterpart of the reference's
 `ops/wasserstein.py`): persim's cost matrix over padded diagrams, the
-ε-annealed stabilized Sinkhorn for H1, and the exact monotone-matching DP
-for H0."""
+ε-annealed Sinkhorn for H1 (log-domain, and the stabilized linear-domain
+variant the tiered path uses), and the exact monotone-matching DP for H0."""
 
 from __future__ import annotations
 
@@ -51,6 +51,30 @@ def build_cost_matrix(b1, d1, m1, b2, d2, m2, big: float = 1e9):
     top = torch.cat([tl, tr], dim=2)
     bot = torch.cat([bl, br], dim=2)
     return torch.cat([top, bot], dim=1)
+
+
+def sinkhorn_cost(D, eps_hi: float = 3e-2, eps_lo: float = 1e-4,
+                  steps: int = 6, iters: int = 40):
+    """ε-annealed entropic OT cost <P, D> on the persim cost matrix, by
+    log-domain Sinkhorn with uniform marginals; the duals are warm-started
+    across a geometric ε ladder (eps_hi → eps_lo relative to each pair's
+    cost scale).  The un-tiered solver of the control's exact redo."""
+    real = D < 1e8
+    scale = torch.clamp(torch.where(real, D, 0.0).amax(dim=(1, 2)), min=1e-9)
+    Dm = torch.where(real, D, 1e3 * scale[:, None, None])
+    B, S, _ = D.shape
+    f = torch.zeros((B, S, 1), device=D.device)
+    g = torch.zeros((B, 1, S), device=D.device)
+    for s in range(steps):
+        eps_rel = eps_hi * (eps_lo / eps_hi) ** (s / (steps - 1))
+        eps = (eps_rel * scale)[:, None, None]
+        logK = -Dm / eps
+        for _ in range(iters):
+            f = -eps * torch.logsumexp(logK + g / eps, dim=2, keepdim=True)
+            g = -eps * torch.logsumexp(logK + f / eps, dim=1, keepdim=True)
+    eps = (eps_lo * scale)[:, None, None]
+    P = torch.exp((-Dm + f + g) / eps)
+    return (P * torch.where(real, D, 0.0)).sum(dim=(1, 2))
 
 
 def sinkhorn_cost_stab(D, eps_hi: float = 3e-2, eps_lo: float = 1e-4,

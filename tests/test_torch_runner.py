@@ -1,0 +1,268 @@
+"""The port's `StudyRunner` as a whole against the JAX `StudyRunner` on the
+CPU, on the same recordings: a tiny in-memory dataset (4 subjects × {slow,
+fast}, recordings of 1.0–1.4 s, one of 0.4 s whose audio is one window
+shorter than its EEG, one that fails to load) staged once with the
+reference's `build_from_dataset` and carried over with `store_from_numpy`;
+0.2 s windows, 101 taps, pads 600 / 97,020 / 560, eeg_batch 4, eeg_bank on.
+
+Tolerances: X rtol 1e-4 / atol 1e-5; detailed rows and band statistics:
+integers, strings and flags exact, floats rtol 1e-4 / atol 1e-5
+(wasserstein_h1, w_matched, w_mismatched and the statistics made of them
+rtol 2e-4, the tiered Sinkhorn's parity tolerance; Cohen's d, a mean over
+a standard deviation of differences of such values, atol 1e-3 besides:
+worst observed 4.2e-5).  Worst error / tolerance observed (pytest -rP):
+X 0.101, wasserstein_h1 / w_mismatched 0.164, Spearman p 0.235, control
+w_matched 0.061, everything else below 0.01.  Four subjects keep the file's time down (the CPU
+runs the plain reduction); three complete slow/fast pairs are fewer than the
+5 the band statistics need, so those are held against the reference on
+synthetic rows of 8 subjects, where both runners are also fed the same sign
+draws and `wass_h1_perm_p` is compared too."""
+import csv
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from tda_eeg_audio_tpu.config import (DEFAULT_CONFIG as JAX_CONFIG,
+                                      GOOD_ELECTRODES)
+from tda_eeg_audio_tpu.io import device_store as jstore
+from tda_eeg_audio_tpu.models import study as jstudy
+from tda_eeg_audio_tpu_torch.convert import config_from_jax, store_from_numpy
+from tda_eeg_audio_tpu_torch.models import study as tstudy
+from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
+from torch_tiny_data import N_RS_MAX, T_AUDIO_PAD, T_EEG_PAD, TinyDataset
+
+# one intra-op thread fixes the float32 summation order of the correlation
+# matmul (see tests/test_torch_slice.py), so the comparison is deterministic
+torch.set_num_threads(1)
+
+FAILS, SHORT = 5, 2
+H1_KEYS = ("wasserstein_h1", "w_mismatched", "w_matched", "wass_h1_slow",
+           "wass_h1_fast", "wass_h1_p", "wass_h1_cohens_d", "wass_h1_p_fdr",
+           "p", "cohens_d", "p_fdr")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both runners' full study, each run once."""
+    jcfg = dataclasses.replace(JAX_CONFIG, window_sec=0.2, fir_numtaps=101,
+                               wasserstein_backend="sinkhorn")
+    tcfg = config_from_jax(dataclasses.asdict(jcfg))
+    ds = TinyDataset(jcfg, n_windows={SHORT: 5}, one_step_short_audio=(SHORT,),
+                     fails=(FAILS,))
+    jdir, tdir = tmp_path_factory.mktemp("jax"), tmp_path_factory.mktemp("torch")
+    n_win_max = (T_EEG_PAD - jcfg.win_samples) // jcfg.step_samples + 1
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jstudy, "T_EEG_PAD", T_EEG_PAD)
+        mp.setattr(jstudy, "T_AUDIO_PAD", T_AUDIO_PAD)
+        mp.setattr(jstudy, "N_RS_MAX", N_RS_MAX)
+        mp.setattr(jstudy, "N_WIN_MAX", n_win_max)
+        jst = jstore.build_from_dataset(ds, GOOD_ELECTRODES, T_EEG_PAD, T_AUDIO_PAD)
+        jst.index = ds.index
+        jr = jstudy.StudyRunner(jst, jcfg, eeg_batch=4, tda_chunk=64,
+                                results_dir=jdir, verbose=False, mesh=None,
+                                eeg_bank=True)
+        jout = dict(features=jr.compute_feature_dataset(),
+                    comparison=jr.run_comparison(n_permutations=100),
+                    control=jr.run_control())
+
+    tst = store_from_numpy(np.asarray(jst.eeg), np.asarray(jst.audio), jst.ns_e,
+                           jst.ns_a, jst.metas, ds.index, device="cpu")
+    tr = tstudy.StudyRunner(tst, tcfg, eeg_batch=4, results_dir=tdir,
+                            verbose=False, eeg_bank=True,
+                            feature_na_max=jr.feature_na_max,
+                            t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
+                            n_rs_max=N_RS_MAX)
+    redone0 = run_tda.redone
+    tout = dict(features=tr.compute_feature_dataset(),
+                comparison=tr.run_comparison(n_permutations=100),
+                control=tr.run_control())
+    return dict(jr=jr, tr=tr, j=jout, t=tout, jdir=jdir, tdir=tdir, ds=ds,
+                windows_redone=run_tda.redone - redone0)
+
+
+WORST = {}      # largest |got − want| / allowed seen per kind of value
+
+
+def _same(got, want, path=""):
+    """Recursive comparison with the module's tolerances."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, f"{path}[{i}]")
+    elif isinstance(want, (float, np.floating)):
+        key = path.rsplit(".", 1)[-1]
+        rtol = 2e-4 if key in H1_KEYS else 1e-4
+        atol = 1e-3 if key.endswith("cohens_d") else 1e-5
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   equal_nan=True, err_msg=path)
+        if np.isfinite(want):
+            kind = path.split(".")[0].split("[")[0] + ":" + key
+            WORST[kind] = max(WORST.get(kind, 0.0),
+                              abs(got - want) / (atol + rtol * abs(want)))
+    else:
+        assert got == want, (path, got, want)
+
+
+def test_feature_dataset_matches_reference(runs):
+    Xt, yt, st, ft, mt = runs["t"]["features"]
+    Xj, yj, sj, fj, mj = runs["j"]["features"]
+    assert Xt.shape == Xj.shape == (7, 220) and np.isfinite(Xt).all()
+    np.testing.assert_allclose(Xt, Xj, rtol=1e-4, atol=1e-5)
+    print("X: worst error / tolerance "
+          f"{float((np.abs(Xt - Xj) / (1e-5 + 1e-4 * np.abs(Xj))).max()):.3f}")
+    np.testing.assert_array_equal(yt, yj)
+    np.testing.assert_array_equal(st, sj)
+    assert ft == fj
+    assert mt == mj
+    assert mt["K"] == 5 and mt["failed_files"] == ["bb03_ut01.mat"]
+    assert len(mt["file_metadata"]) == 7
+
+
+def test_failed_recording_is_dropped_everywhere(runs):
+    fn, subj, cond = runs["ds"].index[FAILS]
+    tr = runs["tr"]
+    assert [f for f, _ in tr.failed_files] == [fn]
+    rows = runs["t"]["comparison"]["detailed_rows"]
+    assert not [r for r in rows if (r["filename"], r["condition"]) == (fn, cond)]
+    assert len(rows) == 7 * 5
+    # its subject has no slow/fast pair left
+    assert all(b["n_subjects"] == 3
+               for b in runs["t"]["comparison"]["band_results"].values())
+
+
+def test_bank_path_served_every_batch(runs):
+    tr, jr = runs["tr"], runs["jr"]
+    assert tr._bank_served == jr._bank_served == 2
+    assert tr._bank_fallback == jr._bank_fallback == 0
+
+
+def test_detailed_rows_match_reference(runs):
+    rows_t = runs["t"]["comparison"]["detailed_rows"]
+    rows_j = runs["j"]["comparison"]["detailed_rows"]
+    _same(rows_t, rows_j, "rows")
+    assert {r["n_windows"] for r in rows_t} == {4, 15}
+
+
+def test_band_results_match_reference(runs):
+    ct, cj = runs["t"]["comparison"], runs["j"]["comparison"]
+    _same(ct["band_results"], cj["band_results"], "band_results")
+    for k in set(cj) - {"band_results", "detailed_rows"}:
+        assert ct[k] == cj[k], k
+    assert ct["n_recordings"] == 7 and ct["n_subjects"] == 4
+    for b in ct["band_results"].values():   # < 5 subjects: FDR entries only
+        assert b["wass_h1_p_fdr"] == 1.0 and not b["wass_h1_sig_fdr"]
+
+
+def test_control_matches_reference_with_exact_redo(runs):
+    _same(runs["t"]["control"], runs["j"]["control"], "control")
+    assert runs["tr"].redo_counts["control_deviants"] == 1
+    for b in runs["t"]["control"].values():
+        assert b["n"] == 3 and b["status"] == "insufficient"
+        assert set(b["by_condition"]) == {"slow", "fast"}
+    assert runs["windows_redone"] == 0
+
+
+def test_artifacts_have_the_reference_schemas(runs):
+    for name in ("eeg_audio_tda_comparison.json", "matched_vs_mismatched.json"):
+        jt = json.loads((runs["tdir"] / name).read_text())
+        jj = json.loads((runs["jdir"] / name).read_text())
+        assert set(jt) == set(jj), name
+        for band in jt.get("band_results", {}):
+            assert set(jt["band_results"][band]) == set(jj["band_results"][band])
+    name = "eeg_audio_tda_detailed.csv"
+    with open(runs["tdir"] / name) as ft, open(runs["jdir"] / name) as fj:
+        rt, rj = list(csv.reader(ft)), list(csv.reader(fj))
+    assert rt[0] == rj[0] and len(rt) == len(rj) == 36
+    assert not list(runs["tdir"].glob("*.png"))     # figures are not ported
+
+
+def test_host_dataset_staging_matches_store(runs):
+    """A runner over the host dataset itself (no store) stages the same
+    batch as the store, isolates the failing file and reads lengths from
+    the records."""
+    ds, tr = runs["ds"], runs["tr"]
+    host = tstudy.StudyRunner(ds, tr.cfg, eeg_batch=4, verbose=False,
+                              t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
+                              n_rs_max=N_RS_MAX, device="cpu")
+    idxs = [0, SHORT, FAILS]
+    eeg_h, audio_h, ns_e_h, ns_a_h, metas_h = host._load_batch(idxs)
+    eeg_s, audio_s, ns_e_s, ns_a_s, metas_s = tr._load_batch(idxs)
+    assert torch.equal(eeg_h, eeg_s) and torch.equal(audio_h, audio_s)
+    np.testing.assert_array_equal(ns_e_h, ns_e_s)
+    np.testing.assert_array_equal(ns_a_h, ns_a_s)
+    assert [m["failed"] for m in metas_h] == [False, False, True]
+    assert [f for f, _ in host.failed_files] == [ds.index[FAILS][0]]
+    for i in idxs:
+        assert host._rec_length(i)[1] == tr._rec_length(i)[1]
+        if i != FAILS:
+            assert host._rec_length(i) == tr._rec_length(i)
+            assert host._audio_length(i) == tr._audio_length(i)
+    # padding rows of the store: zeroed, one empty second long
+    e, a, ne, na, m = tr.store.batch([1], pad_to=3)
+    assert e.shape[0] == a.shape[0] == 3 and len(m) == 1
+    assert not bool(e[1:].any()) and not bool(a[1:].any())
+    assert ne.tolist()[1:] == [250, 250] and na.tolist()[1:] == [44100, 44100]
+    with pytest.raises(NotImplementedError):
+        tstudy.StudyRunner(tr.store, dataclasses.replace(
+            tr.cfg, wasserstein_backend="host_exact"))
+
+
+def _synthetic_rows(n_subjects=8, seed=3):
+    """Comparison and control rows of 8 subjects × {slow, fast} × 2
+    recordings, values from a seed; one subject lacks its fast recordings in
+    one band and one control value is NaN."""
+    rng = np.random.default_rng(seed)
+    cmp_rows, ctl_rows = [], []
+    for s in range(n_subjects):
+        for cond in ("slow", "fast"):
+            for u in range(2):
+                for band in tstudy.BAND_NAMES:
+                    if s == 7 and cond == "fast" and band == "gamma":
+                        continue
+                    shift = 0.05 if cond == "slow" else 0.0
+                    base = dict(filename=f"bb{s:02d}_ut{u:02d}.mat",
+                                condition=cond, subject=f"bb{s:02d}", band=band)
+                    cmp_rows.append(dict(
+                        base, wasserstein_h0=float(rng.uniform(4, 6)),
+                        wasserstein_h1=float(rng.uniform(0.4, 0.6) + shift),
+                        n_windows=15, tau=int(rng.integers(1, 9)),
+                        corr_mean_persistence_r=float(rng.uniform(-1, 1))))
+                    wm = float(rng.uniform(0.4, 0.6))
+                    ctl_rows.append(dict(
+                        base, w_matched=wm,
+                        w_mismatched=float(np.nan if (s, u, band) == (1, 0, "theta")
+                                           else wm + rng.normal(0.02, 0.03))))
+    return cmp_rows, ctl_rows
+
+
+def test_stats_on_synthetic_rows_match_reference(runs):
+    """≥ 5 subjects in every band: both runners' `_comparison_stats` and
+    `_control_stats` on one set of rows, the port fed the reference's sign
+    draws, so the permutation p-value is compared too."""
+    cmp_rows, ctl_rows = _synthetic_rows()
+    jr, tr = runs["jr"], runs["tr"]
+    jr2 = jstudy.StudyRunner.__new__(jstudy.StudyRunner)
+    jr2.__dict__.update(jr.__dict__, results_dir=None)
+    tr2 = tstudy.StudyRunner.__new__(tstudy.StudyRunner)
+    tr2.__dict__.update(tr.__dict__, results_dir=None)
+    n_perm = 200
+    want = jr2._comparison_stats([dict(r) for r in cmp_rows], n_perm)
+    _, sub = jax.random.split(jax.random.key(42))
+    signs = np.array(jax.random.rademacher(sub, (n_perm, 5, 8), dtype=jnp.float32))
+    got = tr2._comparison_stats([dict(r) for r in cmp_rows], n_perm, signs=signs)
+    _same(got["band_results"], want["band_results"], "band_results")
+    assert got["band_results"]["gamma"]["n_subjects"] == 7
+    assert all("wass_h1_perm_p" in b for b in got["band_results"].values())
+    _same(tr2._control_stats(ctl_rows), jr2._control_stats(ctl_rows), "control")
+    print("worst error / tolerance by kind: "
+          + json.dumps({k: round(v, 3) for k, v in sorted(WORST.items())}))
