@@ -33,13 +33,28 @@ Phases, each fatal on failure:
      within phase 5's tolerances);
   8. the exact redo on the card: one n = 47 batch through `run_tda` with an
      arena so small that windows overflow, against the wide-arena run;
+  9. the command line on the card: 8 full-length synthetic recordings (4
+     subjects × {slow, fast}) written as .mat files in the reference's
+     layout, then `cli.main` in this process for preprocess, graphs,
+     features, features as two partials + --merge-partials (X equal bit for
+     bit), features --backend host (X against the kernel's within phase 5's
+     tolerances), compare, compare --wasserstein exact, control --wasserstein
+     exact and eda, each command's kernel launches counted from 0, its
+     artifacts checked for the reference's keys and columns; prints the
+     exact-vs-Sinkhorn difference of wasserstein_h1 per band (a reading, not
+     a gate) and the `cli` line.  classify, ablate and study are not run:
+     the card's machine has neither scikit-learn nor matplotlib;
 then print the `kernels` JSON line, the card line, and the result line.
-Imports nothing of JAX or of the reference package.
+Imports nothing of JAX or of the reference package, nor scikit-learn or
+matplotlib.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -60,6 +75,26 @@ INT32_OPS_PER_S = 67e12 / 4
 PLAIN_STORED_BYTES = 1 << 34    # the plain reduction's dense bool columns per call
 # the stage of the main path that runs the kernel at one shape only
 STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
+BANDS = ("delta", "theta", "alpha", "beta", "gamma")
+# the reference's artifact schemas (JSON keys, CSV columns) that phase 9 holds
+# the command line's artifacts to
+CMP_KEYS = ["analysis", "method", "audio_construction", "eeg_construction",
+            "n_recordings", "n_subjects", "n_slow", "n_fast",
+            "max_windows_per_recording", "statistical_test",
+            "multiple_comparison", "band_results"]
+DETAILED_COLS = ["filename", "condition", "subject", "band", "wasserstein_h0",
+                 "wasserstein_h1", "n_windows", "tau"] + [
+    f"corr_{f}_{s}" for f in ("mean_persistence", "total_persistence",
+                              "persistence_entropy", "max_persistence",
+                              "n_features") for s in ("r", "p")]
+PRE_COLS = ["filename", "n_electrodes", "n_samples", "duration_sec", "fs_eeg",
+            "bands", "n_windows", "condition"]
+META_COLS = ["filename", "n_windows", "n_windows_used", "validation_issues",
+             "window_sampling", "max_windows_per_band", "n_windows_total",
+             "n_windows_used_total"]
+EDA_KEYS = ["n_recordings", "n_subjects", "n_slow", "n_fast", "duration_stats",
+            "coverage", "band_power", "subject_cluster_order"]
+INV_COLS = ["filename", "subject", "condition", "n_samples", "duration_sec"]
 
 
 def card_line() -> str:
@@ -553,6 +588,180 @@ def overflow_redo_check(d47, thresh: float, na: int = 8):
                 feature_max_abs_err=feat_err)
 
 
+def write_mat_dataset(root: Path, n_subjects: int = 4):
+    """n_subjects × {slow, fast} × 1 utterance of the port's synthetic
+    recordings (full length: 65 × ~2,700–5,750 EEG samples, 10–23 s of
+    44.1 kHz audio) as .mat files in the reference's layout: root/slow,
+    root/fast, keys `subeeg`, `y` (a column), `Fs`.  Returns the index."""
+    import numpy as np
+    from scipy.io import savemat
+
+    from tda_eeg_audio_tpu_torch.io.synthetic import SynthDataset
+
+    ds = SynthDataset(n_subjects=n_subjects, n_per_subject=1, cache=False)
+    for i, (fn, _, cond) in enumerate(ds.index):
+        rec = ds.load(i)
+        (root / cond).mkdir(parents=True, exist_ok=True)
+        savemat(root / cond / fn, dict(subeeg=rec["eeg_raw"],
+                                       y=rec["audio"][:, None],
+                                       Fs=np.array([[rec["fs_audio"]]])))
+    return ds.index
+
+
+def _csv(path: Path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _header(path: Path):
+    with open(path, newline="") as f:
+        return next(csv.reader(f))
+
+
+def cli_phase():
+    """Phase 9: the CLI's commands on the card over .mat recordings, each
+    command's kernel launches counted from 0 and read after it.  Returns
+    (report, exact-vs-Sinkhorn reading, host-vs-device X ratio, problems)."""
+    import numpy as np
+    import torch
+
+    from tda_eeg_audio_tpu_torch import cli
+    from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
+    from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+
+    report, problems = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        td = Path(tmp)
+        data = td / "data"
+        t0 = time.perf_counter()
+        index = write_mat_dataset(data)
+        n_rec = len(index)
+        print(f"cli data: {n_rec} full-length recordings written as .mat files "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        def run(name, command, results, *extra):
+            """One command in this process: seconds between two device
+            synchronisations, kernel launches from 0, windows redone; its
+            printout is kept, its last line reported."""
+            out = io.StringIO()
+            redone0 = run_tda.redone
+            h1_diagrams_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([command, "--data", str(data), "--results",
+                               str(td / results), *extra])
+            torch.cuda.synchronize()
+            lines = out.getvalue().strip().splitlines()
+            report[name] = dict(seconds=time.perf_counter() - t0,
+                                launches=h1_diagrams_cuda.launches,
+                                windows_redone=run_tda.redone - redone0,
+                                said=lines[-1] if lines else "")
+            if rc != 0:
+                problems.append(f"{name}: rc {rc}")
+            return td / results
+
+        def need(cond, what):
+            if not cond:
+                problems.append(what)
+
+        # preprocessed/ and graphs/
+        pre = run("preprocess", "preprocess", "res", "--out", str(td / "pre"))
+        graphs = run("graphs", "graphs", "res", "--out", str(td / "graphs"))
+        need(_header(td / "pre" / "preprocessing_metadata.csv") == PRE_COLS,
+             "preprocessing_metadata.csv columns")
+        meta_rows = _csv(td / "pre" / "preprocessing_metadata.csv")
+        need(len(meta_rows) == n_rec, "preprocessing_metadata.csv rows")
+        for fn, _, cond in index:
+            stem = fn.replace(".mat", "")
+            d, g = td / "pre" / cond / stem, td / "graphs" / cond / stem
+            need(sorted(p.name for p in d.iterdir()) == sorted(
+                [f"{b}.npy" for b in BANDS] + ["audio.npy", "window_times.npy"]),
+                f"preprocessed files of {cond}/{stem}")
+            need(sorted(p.name for p in g.iterdir()) == sorted(
+                f"{b}_{k}.npy" for b in BANDS for k in ("correlations", "distances")),
+                f"graphs files of {cond}/{stem}")
+            w = np.load(d / "gamma.npy", mmap_mode="r")
+            dm = np.load(g / "gamma_distances.npy")
+            need(w.shape[1:] == (47, 250) and dm.shape == (w.shape[0], 47, 47)
+                 and np.isfinite(dm).all(), f"shapes of {cond}/{stem}")
+        del pre, graphs
+
+        # features: one shot, two partials + merge, and the host backend
+        feat = run("features", "features", "feat", "--batch", "4")
+        X = np.load(feat / "X.npy")
+        need(X.shape == (n_rec, 220) and np.isfinite(X).all(), f"X {X.shape}")
+        need(len((feat / "feature_names.txt").read_text().split()) == 220,
+             "feature_names.txt")
+        need(_header(feat / "metadata.csv") == META_COLS, "metadata.csv columns")
+        half = str(n_rec // 2)
+        run("features_partial_0", "features", "part", "--batch", "4",
+            "--batch-start", "0", "--batch-end", half, "--write-partial")
+        run("features_partial_1", "features", "part", "--batch", "4",
+            "--batch-start", half, "--write-partial")
+        part = run("features_merge", "features", "part", "--merge-partials")
+        need(np.array_equal(np.load(part / "X.npy"), X)
+             and (part / "filenames.txt").read_text()
+             == (feat / "filenames.txt").read_text(),
+             "partials + merge differ from the one-shot X")
+        host = run("features_host", "features", "feat_host", "--batch", "4",
+                   "--backend", "host")
+        x_ratio = float_ratio(np.load(host / "X.npy"), X, 1e-4)
+        need(x_ratio <= 1.0, f"--backend host X differs from the kernel's "
+                             f"(largest error / tolerance {x_ratio:.3g})")
+
+        # the comparison (fused Sinkhorn, then exact) and the exact control
+        rows = {}
+        # the exact commands name the device backend, the others take "auto":
+        # both are the kernel's route
+        for name, extra in (("compare", ()), ("compare_exact", (
+                "--wasserstein", "exact", "--backend", "device"))):
+            res = run(name, "compare", name, *extra)
+            slim = json.loads((res / "eeg_audio_tda_comparison.json").read_text())
+            need(list(slim) == CMP_KEYS and list(slim["band_results"]) == list(BANDS),
+                 f"{name}: eeg_audio_tda_comparison.json keys")
+            need(_header(res / "eeg_audio_tda_detailed.csv") == DETAILED_COLS,
+                 f"{name}: eeg_audio_tda_detailed.csv columns")
+            rows[name] = {(r["filename"], r["condition"], r["band"]): r
+                          for r in _csv(res / "eeg_audio_tda_detailed.csv")}
+            need(len(rows[name]) == n_rec * len(BANDS) and all(
+                np.isfinite(float(r["wasserstein_h1"])) for r in rows[name].values()),
+                f"{name}: detailed rows")
+        need(rows["compare"].keys() == rows["compare_exact"].keys(), "row keys")
+        exact_vs_sinkhorn = {}
+        for band in BANDS:     # (Sinkhorn − exact) / exact per recording
+            rel = np.array([(float(rows["compare"][k]["wasserstein_h1"])
+                             - float(r["wasserstein_h1"])) / float(r["wasserstein_h1"])
+                            for k, r in rows["compare_exact"].items() if k[2] == band])
+            exact_vs_sinkhorn[band] = dict(max_abs_rel=float(np.abs(rel).max()),
+                                           mean_abs_rel=float(np.abs(rel).mean()),
+                                           mean_rel=float(rel.mean()))
+        ctl = run("control_exact", "control", "ctl", "--wasserstein", "exact",
+                  "--backend", "device")
+        res = json.loads((ctl / "matched_vs_mismatched.json").read_text())
+        need(list(res) == list(BANDS) and all(
+            "n" in res[b] and set(res[b].get("by_condition", {})) == {"slow", "fast"}
+            for b in BANDS), "matched_vs_mismatched.json keys")
+
+        # EDA
+        eda = run("eda", "eda", "eda")
+        summary = json.loads((eda / "eda_summary.json").read_text())
+        need(list(summary) == EDA_KEYS and summary["n_recordings"] == n_rec,
+             "eda_summary.json keys")
+        need(_header(eda / "file_inventory.csv") == INV_COLS
+             and len(_csv(eda / "file_inventory.csv")) == n_rec,
+             "file_inventory.csv")
+
+    # the commands that compute diagrams on the card launch the kernel; the
+    # host backend and the commands without diagrams launch none
+    for name, r in report.items():
+        on_card = name in ("features", "features_partial_0", "features_partial_1",
+                           "compare", "compare_exact", "control_exact")
+        if (r["launches"] > 0) != on_card:
+            problems.append(f"{name}: {r['launches']} kernel launches")
+    return report, exact_vs_sinkhorn, x_ratio, problems
+
+
 def main() -> int:
     import torch
 
@@ -567,6 +776,7 @@ def main() -> int:
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -731,6 +941,24 @@ def main() -> int:
         print(f"FAIL: overflow redo: {redo}", file=sys.stderr)
         return 1
 
+    # ── phase 9: the command line on the card ──
+    cli_report, exact_vs_sinkhorn, x_ratio, problems = cli_phase()
+    cli_launches = sum(r["launches"] for r in cli_report.values())
+    print("cli (seconds, kernel launches, windows redone per command): "
+          + json.dumps({k: dict(seconds=round(r["seconds"], 3),
+                                launches=r["launches"],
+                                windows_redone=r["windows_redone"])
+                        for k, r in cli_report.items()}), flush=True)
+    print("cli said: " + json.dumps({k: r["said"] for k, r in cli_report.items()}),
+          flush=True)
+    print(f"cli features --backend host vs kernel: largest error / tolerance "
+          f"{x_ratio:.4g} (rtol 1e-4, atol 1e-5)", flush=True)
+    print("cli wasserstein_h1 exact vs Sinkhorn, relative difference by band "
+          "(a reading): " + json.dumps(exact_vs_sinkhorn), flush=True)
+    if problems:
+        print(f"FAIL: cli: {problems}", file=sys.stderr)
+        return 1
+
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
     t_bytes = r47["t_bytes"] + r124["t_bytes"]
@@ -739,8 +967,9 @@ def main() -> int:
         name="h1_reduce", route="cuda",
         source="tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu",
         replaces="tda_eeg_audio_tpu/ops/homology_pallas.py:190",
-        launches=total + runner_launches,
-        launches_by_path=dict(one_batch=launches, runner=report["launches"]),
+        launches=total + runner_launches + cli_launches,
+        launches_by_path=dict(one_batch=launches, runner=report["launches"],
+                              cli={k: r["launches"] for k, r in cli_report.items()}),
         max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
         ms=r47["ms"] + r124["ms"], plain_ms=r47["plain_ms"] + r124["plain_ms"],
         bound_ms=max(t_bytes, t_ops),
@@ -753,6 +982,7 @@ def main() -> int:
             steps_mean=r["steps_mean"], steps_max=r["steps_max"])
               for r in (r47, r124)},
         held_against_plain=not (r47["mismatched"] or r124["mismatched"]))]
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

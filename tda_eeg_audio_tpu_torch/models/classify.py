@@ -1,15 +1,34 @@
-"""Feature-matrix layout of the classification stage.  Only the row layout
-is here; the Random-Forest stage itself is not ported yet."""
+"""Slow-vs-fast classification stage on the host: Random Forest, group
+cross-validation, subject-level permutation test and bootstrap CI over the
+feature matrix X the features stage computed (copy of the reference
+package's host stage; it runs on a numpy X and is not a device stage).
+
+The estimator settings and random seeds are the reference's, so the
+metrics are reproducible:
+  * Pipeline(StandardScaler, RandomForest(100, depth 10, min_split 5,
+    min_leaf 2, seed 42)) — reference scripts/tda_eeg_classification_v2.py:821-831
+  * StratifiedGroupKFold(5, shuffle, seed 42) — :794-800
+  * subject-level label permutation with np.random.RandomState —
+    reference scripts/utils.py:198-215
+  * subject-level bootstrap CI with np.random.default_rng —
+    reference scripts/tda_eeg_classification_v2.py:1010-1043
+scikit-learn and joblib are imported inside the functions that use them, so
+importing this module needs neither.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..config import BAND_NAMES, DIAGRAM_FEATURES
+from ..config import (PipelineConfig, DEFAULT_CONFIG, BAND_NAMES,
+                      DIAGRAM_FEATURES)
+
+BAND_NAMES = list(BAND_NAMES)
 
 
 def feature_names_220() -> list[str]:
-    """The 220 feature names, in row order."""
+    """The 220 feature names, in row order (reference
+    features/feature_names.txt)."""
     return [f"{band}_{dim}_{feat}_{agg}" for band in BAND_NAMES
             for feat in DIAGRAM_FEATURES for dim in ("h0", "h1")
             for agg in ("mean", "std")]
@@ -20,3 +39,312 @@ def features_to_row(agg: np.ndarray) -> np.ndarray:
     220-vector in the reference's name order: feature-major within a band,
     h0/h1 interleaved, mean/std innermost."""
     return agg.transpose(0, 2, 1, 3).reshape(-1)
+
+
+def permute_labels_by_subject(y: np.ndarray, subjects: np.ndarray, rng) -> np.ndarray:
+    """Subject-level label permutation (reference scripts/utils.py:198-215)."""
+    unique_subjects = np.unique(subjects)
+    subject_labels = np.array([y[subjects == s][0] for s in unique_subjects])
+    perm = rng.permutation(subject_labels)
+    y_perm = np.zeros_like(y)
+    for s, lab in zip(unique_subjects, perm):
+        y_perm[subjects == s] = lab
+    return y_perm
+
+
+def make_pipeline(random_state: int = 42):
+    from sklearn.ensemble import RandomForestClassifier
+    from sklearn.pipeline import Pipeline
+    from sklearn.preprocessing import StandardScaler
+
+    return Pipeline([
+        ("scaler", StandardScaler()),
+        ("classifier", RandomForestClassifier(
+            n_estimators=100, max_depth=10, min_samples_split=5,
+            min_samples_leaf=2, random_state=random_state, n_jobs=-1)),
+    ])
+
+
+def run_classification(X: np.ndarray, y: np.ndarray, subjects: np.ndarray,
+                       feature_names: list[str],
+                       cfg: PipelineConfig = DEFAULT_CONFIG,
+                       n_permutations: int | None = None,
+                       n_bootstrap: int | None = None,
+                       verbose: bool = True) -> dict:
+    """Full classification analysis → results_summary-schema dict
+    (reference classification_rerun.py end-to-end)."""
+    from sklearn.model_selection import (
+        StratifiedGroupKFold, GroupKFold, cross_val_score, cross_val_predict)
+    from sklearn.metrics import confusion_matrix, roc_auc_score, f1_score
+
+    n_perm = cfg.n_permutations if n_permutations is None else n_permutations
+    n_boot = (2000 if n_bootstrap is None else n_bootstrap)
+
+    # NaN/Inf row removal (reference tda_eeg_classification_v2.py:698-713)
+    valid = ~(np.isnan(X).any(1) | np.isinf(X).any(1))
+    X, y, subjects = X[valid], y[valid], subjects[valid]
+
+    n_splits = min(cfg.n_splits, len(np.unique(subjects)))
+    try:
+        gkf = StratifiedGroupKFold(n_splits=n_splits, shuffle=True,
+                                   random_state=cfg.random_state)
+        cv_name = "StratifiedGroupKFold"
+    except Exception:
+        gkf = GroupKFold(n_splits=n_splits)
+        cv_name = "GroupKFold"
+
+    # subject-leakage audit (reference :803-816)
+    leakage = 0
+    for tr, te in gkf.split(X, y, groups=subjects):
+        leakage += len(set(subjects[tr]) & set(subjects[te]))
+    assert leakage == 0, "subject leakage across folds"
+
+    pipe = make_pipeline(cfg.random_state)
+    cv_scores = cross_val_score(pipe, X, y, groups=subjects, cv=gkf,
+                                scoring="accuracy")
+    y_pred = cross_val_predict(pipe, X, y, groups=subjects, cv=gkf)
+    f1 = f1_score(y, y_pred, average="weighted")
+    y_proba = cross_val_predict(pipe, X, y, groups=subjects, cv=gkf,
+                                method="predict_proba")
+    auc = roc_auc_score(y, y_proba[:, 1])
+    cm = confusion_matrix(y, y_pred)
+
+    # feature importances (reference :886-948)
+    pipe.fit(X, y)
+    importances = pipe.named_steps["classifier"].feature_importances_
+    band_imp: dict[str, float] = {}
+    dim_imp: dict[str, float] = {}
+    for name, imp in zip(feature_names, importances):
+        parts = name.split("_")
+        band_imp[parts[0]] = band_imp.get(parts[0], 0.0) + float(imp)
+        dim_imp[parts[1]] = dim_imp.get(parts[1], 0.0) + float(imp)
+
+    # permutation test (reference :953-978).  The permuted label vectors are
+    # drawn sequentially from one seeded stream (bit-identical to the
+    # reference's loop); the independent CV re-runs then fan out over all
+    # host cores, where the reference runs them serially.  Timed and
+    # reported (result["timing"] + structured log), since the benchmark
+    # leaves this host stage out.
+    import time
+
+    from ..utils import logging as tlog
+
+    observed = cv_scores.mean()
+    rng = np.random.RandomState(cfg.random_state)
+    y_perms = [permute_labels_by_subject(y, subjects, rng)
+               for _ in range(n_perm)]
+
+    from joblib import Parallel, delayed
+
+    def one_perm(y_p):
+        p = make_pipeline(cfg.random_state)
+        p.named_steps["classifier"].n_jobs = 1
+        return cross_val_score(p, X, y_p, groups=subjects, cv=gkf,
+                               scoring="accuracy").mean()
+
+    t_perm0 = time.time()
+    null = np.array(Parallel(n_jobs=-1, prefer="processes")(
+        delayed(one_perm)(y_p) for y_p in y_perms)) if n_perm else np.zeros(1)
+    t_perm = time.time() - t_perm0
+    tlog.LOGGER.stage("permutation_test", t_perm, items=n_perm)
+    p_value = (np.sum(null >= observed) + 1) / (n_perm + 1)
+    effect = (observed - null.mean()) / (null.std() + 1e-30)
+
+    # subject-level bootstrap CI (reference :1010-1043)
+    t_boot0 = time.time()
+    boot_rng = np.random.default_rng(cfg.random_state)
+    subj = np.unique(subjects)
+    subj_acc = np.array([(y_pred[subjects == s] == y[subjects == s]).mean()
+                         for s in subj])
+    boots = np.array([subj_acc[boot_rng.choice(len(subj), len(subj))].mean()
+                      for _ in range(n_boot)])
+    ci_lo, ci_hi = np.percentile(boots, [2.5, 97.5])
+    t_boot = time.time() - t_boot0
+    tlog.LOGGER.stage("bootstrap_ci", t_boot, items=n_boot)
+
+    top = np.argsort(importances)[::-1][:20]
+    # significance string (reference tda_eeg_classification_v2.py:996-1004;
+    # results_summary.json "significance_level")
+    if p_value < 0.001:
+        sig_level = "*** (p < 0.001)"
+    elif p_value < 0.01:
+        sig_level = "** (p < 0.01)"
+    elif p_value < 0.05:
+        sig_level = "* (p < 0.05)"
+    else:
+        sig_level = "ns (p >= 0.05)"
+    return {
+        "cv_accuracy_mean": float(cv_scores.mean()),
+        "cv_accuracy_std": float(cv_scores.std()),
+        "cv_scores_per_fold": cv_scores.tolist(),
+        "f1_score": float(f1),
+        "roc_auc": float(auc),
+        "p_value": float(p_value),
+        "effect_size_cohens_d": float(effect),
+        "significance_level": sig_level,
+        "ci_lower_bootstrap": float(ci_lo),
+        "ci_upper_bootstrap": float(ci_hi),
+        "ci_method": f"subject-level bootstrap ({n_boot} iterations)",
+        "confusion_matrix": cm.tolist(),
+        "slow_accuracy_pct": float(cm[0, 0] / max(cm[0].sum(), 1) * 100),
+        "fast_accuracy_pct": float(cm[1, 1] / max(cm[1].sum(), 1) * 100),
+        "n_samples": int(len(y)),
+        "n_features": int(X.shape[1]),
+        "n_subjects": int(len(subj)),
+        "n_slow": int(np.sum(y == 0)),
+        "n_fast": int(np.sum(y == 1)),
+        "model": "RandomForestClassifier",
+        "cv_method": cv_name,
+        "n_splits": n_splits,
+        "n_permutations": n_perm,
+        # host-stage wall clock of the permutation fan-out (reference
+        # tda_eeg_classification_v2.py:953-978), which the benchmark leaves
+        # out — recorded here so that exclusion is quantified on every run
+        "timing": {"permutation_test_s": round(t_perm, 2),
+                   "bootstrap_s": round(t_boot, 2)},
+        "band_importance": {
+            b: {"importance": v, "pct": v / max(sum(band_imp.values()), 1e-30) * 100}
+            for b, v in band_imp.items()},
+        "dimension_importance": {
+            d: {"importance": v, "pct": v / max(sum(dim_imp.values()), 1e-30) * 100}
+            for d, v in dim_imp.items()},
+        "top_features": [
+            {"feature": feature_names[i], "importance": float(importances[i])}
+            for i in top],
+        "all_importances": {feature_names[i]: float(importances[i])
+                            for i in np.argsort(importances)[::-1]},
+        # raw distributions for the statistical-tests figure — popped by the
+        # caller before JSON serialization (classification_rerun.py:270-316)
+        "null_scores": null.tolist(),
+        "bootstrap_scores": boots.tolist(),
+        "conclusion": "SIGNIFICANT" if p_value < 0.05 else "NOT SIGNIFICANT",
+    }
+
+
+def _cohens_d_two_sample(a: np.ndarray, b: np.ndarray) -> float:
+    """Pooled-variance Cohen's d of (b − a) — the gamma_investigation
+    convention (mean_difference = fast_mean − slow_mean; verified against
+    the reference's results/gamma_investigation.json: d = 0.6633 for
+    gamma_h0_mean_death_std reproduces with (n−1)-weighted pooled std).
+    Constant features (zero pooled variance) get d = 0, matching the
+    artifact's exactly-0.0 medians."""
+    n1, n2 = len(a), len(b)
+    pooled = np.sqrt(((n1 - 1) * np.var(a) + (n2 - 1) * np.var(b))
+                     / max(n1 + n2 - 2, 1))
+    diff = b.mean() - a.mean()
+    return float(diff / pooled) if pooled > 0 else 0.0
+
+
+def run_band_ablation(X: np.ndarray, y: np.ndarray, subjects: np.ndarray,
+                      feature_names: list[str],
+                      cfg: PipelineConfig = DEFAULT_CONFIG,
+                      n_top_gamma: int = 3,
+                      verbose: bool = True) -> dict:
+    """Per-band ablation study → gamma_investigation.json, key-for-key.
+
+    The reference ships results/gamma_investigation.json WITHOUT a
+    generating script, so the artifact itself defines the contract
+    (the reference's results/gamma_investigation.json): `metadata`,
+    `top_gamma_features_comparison` (top RF-importance gamma features:
+    slow/fast mean±std, pooled Cohen's d, mean_difference),
+    `classifier_without_gamma` / `classifier_gamma_only` /
+    `classifier_per_band` (mean_accuracy/std_accuracy/fold_accuracies/
+    n_features — same pipeline/CV as the main classification restricted to
+    column subsets), `coefficient_of_variation_per_band` and
+    `effect_size_per_band` (per-feature distributions aggregated per band).
+    """
+    from sklearn.model_selection import StratifiedGroupKFold, GroupKFold, \
+        cross_val_score
+
+    valid = ~(np.isnan(X).any(1) | np.isinf(X).any(1))
+    X, y, subjects = X[valid], y[valid], subjects[valid]
+    n_splits = min(cfg.n_splits, len(np.unique(subjects)))
+    try:
+        gkf = StratifiedGroupKFold(n_splits=n_splits, shuffle=True,
+                                   random_state=cfg.random_state)
+    except Exception:
+        gkf = GroupKFold(n_splits=n_splits)
+    names = np.array(feature_names)
+    bands_sorted = sorted(BAND_NAMES)
+    band_cols = {b: np.where(np.char.startswith(names, b + "_"))[0]
+                 for b in bands_sorted}
+    gamma_cols = band_cols["gamma"]
+    non_gamma_cols = np.where(~np.char.startswith(names, "gamma_"))[0]
+
+    def clf(cols):
+        pipe = make_pipeline(cfg.random_state)
+        sc = cross_val_score(pipe, X[:, cols], y, groups=subjects, cv=gkf,
+                             scoring="accuracy")
+        return {"mean_accuracy": float(sc.mean()),
+                "std_accuracy": float(sc.std()),
+                "fold_accuracies": sc.tolist(),
+                "n_features": int(len(cols))}
+
+    out: dict = {
+        "metadata": {
+            "n_samples": int(len(y)),
+            "n_features": int(X.shape[1]),
+            "n_features_gamma": int(len(gamma_cols)),
+            "n_features_non_gamma": int(len(non_gamma_cols)),
+            "label_distribution": {"slow": int(np.sum(y == 0)),
+                                   "fast": int(np.sum(y == 1))},
+            "bands": bands_sorted,
+        }
+    }
+
+    # top gamma features by full-model RF importance → per-feature slow/fast
+    # comparison (slow = label 0, fast = label 1)
+    pipe = make_pipeline(cfg.random_state)
+    pipe.fit(X, y)
+    imp = pipe.named_steps["classifier"].feature_importances_
+    g_rank = gamma_cols[np.argsort(imp[gamma_cols])[::-1][:n_top_gamma]]
+    slow, fast = X[y == 0], X[y == 1]
+    out["top_gamma_features_comparison"] = {
+        str(names[j]): {
+            "slow_mean": float(slow[:, j].mean()),
+            "slow_std": float(slow[:, j].std()),
+            "fast_mean": float(fast[:, j].mean()),
+            "fast_std": float(fast[:, j].std()),
+            "cohens_d": _cohens_d_two_sample(slow[:, j], fast[:, j]),
+            "mean_difference": float(fast[:, j].mean() - slow[:, j].mean()),
+            "slow_n": int(len(slow)),
+            "fast_n": int(len(fast)),
+        } for j in g_rank}
+
+    out["classifier_without_gamma"] = clf(non_gamma_cols)
+    out["classifier_gamma_only"] = clf(gamma_cols)
+    out["classifier_per_band"] = {}
+    for band in bands_sorted:
+        out["classifier_per_band"][band] = clf(band_cols[band])
+        if verbose:
+            print(f"  ablation {band}: "
+                  f"{out['classifier_per_band'][band]['mean_accuracy']:.4f}")
+
+    # per-feature coefficient of variation (std/|mean|, zero-variance and
+    # zero-mean features excluded — the artifact's per-band minima are all
+    # strictly positive despite constant features like h0_n_essential_mean)
+    # and per-feature Cohen's d distributions, aggregated per band
+    out["coefficient_of_variation_per_band"] = {}
+    out["effect_size_per_band"] = {}
+    for band in bands_sorted:
+        cols = band_cols[band]
+        mu = X[:, cols].mean(0)
+        sd = X[:, cols].std(0)
+        keep = (sd > 0) & (np.abs(mu) > 1e-12)
+        cv = sd[keep] / np.abs(mu[keep])
+        out["coefficient_of_variation_per_band"][band] = {
+            "mean_cv": float(cv.mean()) if len(cv) else 0.0,
+            "std_cv": float(cv.std()) if len(cv) else 0.0,
+            "median_cv": float(np.median(cv)) if len(cv) else 0.0,
+            "max_cv": float(cv.max()) if len(cv) else 0.0,
+            "min_cv": float(cv.min()) if len(cv) else 0.0,
+        }
+        ds = np.array([_cohens_d_two_sample(slow[:, j], fast[:, j])
+                       for j in cols])
+        out["effect_size_per_band"][band] = {
+            "mean_abs_cohens_d": float(np.abs(ds).mean()),
+            "mean_cohens_d": float(ds.mean()),
+            "median_cohens_d": float(np.median(ds)),
+            "max_cohens_d": float(ds.max()),
+        }
+    return out

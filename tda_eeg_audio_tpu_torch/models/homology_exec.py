@@ -1,12 +1,17 @@
 """Homology execution with the exact redo of overflowed windows.
 
-`run_tda` computes the diagrams of a batch of distance matrices through
-`programs.h1_diagrams_routed` (the CUDA kernel for CUDA tensors, the plain
-reduction for CPU tensors), then recomputes every window the reduction
-flagged — creator arena, step budget or bar count exceeded — on the host
-engine (`native/engine.py`), which has no such limits, and scatters those
-diagrams back.  The flags are read back once per call; nothing else leaves
-the device unless a window overflowed."""
+Backends of `run_tda`:
+  * "auto" / "device" — the diagrams of a batch of distance matrices come
+    from `programs.h1_diagrams_routed` (the CUDA kernel for CUDA tensors,
+    the plain reduction for CPU tensors); every window the reduction
+    flagged — creator arena, step budget or bar count exceeded — is then
+    recomputed on the host engine (`native/engine.py`), which has no such
+    limits, and scattered back.  The flags are read back once per call;
+    nothing else leaves the device unless a window overflowed.
+  * "host" — every window on the host engine (the reference's staged
+    parity path); the diagrams come back to the matrices' device.
+
+Both produce the same padded diagram dict and the 11-feature tensors."""
 
 from __future__ import annotations
 
@@ -55,19 +60,33 @@ def _features_from(out, n: int, n_pts=None):
                 features=torch.stack([f_h0, f_h1], dim=1))
 
 
+BACKENDS = ("auto", "device", "host")
+
+
 def run_tda(dms: torch.Tensor, thresh: float, n_pts=None, na_max: int = 96,
-            step_budget: int = 4096, verbose: bool = False) -> dict:
+            step_budget: int = 4096, verbose: bool = False,
+            backend: str = "auto") -> dict:
     """Exact H0 + H1 diagrams and features of (N, n, n) distance matrices on
     their device; overflowed windows are redone on the host engine.
 
     Returns `_features_from`'s dict plus `redone` (N,) bool, the windows that
-    were recomputed.  `run_tda.redone` counts them over the process."""
+    were recomputed.  `run_tda.redone` counts them over the process (the
+    host backend computes every window there and redoes none)."""
     from .programs import h1_diagrams_routed
 
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     N, n, _ = dms.shape
     dev = dms.device
     if n_pts is not None:
         n_pts = torch.as_tensor(n_pts, device=dev)
+    if backend == "host":
+        host = rips_persistence_batch(dms.detach().cpu().numpy(), thresh=thresh,
+                                      max_bars=max(na_max, 128))
+        out = {k: torch.as_tensor(host[k], device=dev) for k in _KEYS}
+        res = _features_from(out, n, n_pts)
+        res["redone"] = torch.zeros(N, dtype=torch.bool, device=dev)
+        return res
     out = h1_diagrams_routed(dms, n_pts, n=n, thresh=thresh, na_max=na_max,
                              h1_max=na_max, step_budget=step_budget)
     out = {k: out[k] for k in _KEYS + ("overflow",)}

@@ -76,6 +76,29 @@ def _banded_windows(eeg, n_samples, cfg, n_win_max):
     return wins, wmask
 
 
+def eeg_window_program(eeg, n_samples, cfg: PipelineConfig = DEFAULT_CONFIG,
+                       n_win_max: int = 89, device=None):
+    """(B, 47, T_pad) padded EEG → banded windows (B, 5, W, 47, win) and the
+    window mask (B, W): the preprocessed/ stage (reference
+    notebooks/1_preprocesamiento.ipynb cell 3)."""
+    dev = resolve_device(device)
+    return _banded_windows(torch.as_tensor(eeg, device=dev, dtype=torch.float32),
+                           torch.as_tensor(n_samples, device=dev).long(), cfg,
+                           n_win_max)
+
+
+def eeg_distance_program(eeg, n_samples, cfg: PipelineConfig = DEFAULT_CONFIG,
+                         n_win_max: int = 89, device=None):
+    """(B, 47, T_pad) padded EEG → per-band correlation distances of every
+    window: (dist (B, 5, W, 47, 47), corr, wmask (B, W)); windows beyond a
+    recording's true length are masked (the graphs/ stage, reference
+    notebooks/2_graph_construction.ipynb cell 8, and the staged features
+    path, which selects its windows afterwards)."""
+    wins, wmask = eeg_window_program(eeg, n_samples, cfg, n_win_max, device)
+    corr = tgeo.correlation_matrix(wins)
+    return tgeo.correlation_to_distance(corr, cfg.distance_method), corr, wmask
+
+
 def window_tda_features(dm, thresh: float = 2.0, na_max: int = 128,
                         h1_max: int = 128, step_budget: int = 4096):
     """(B, 47, 47) distance matrices → (B, 2, 11) H0/H1 features + diagrams

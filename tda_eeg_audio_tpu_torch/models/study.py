@@ -1,24 +1,31 @@
 """The study runner: drives the batched programs of `models/programs.py`
-over a dataset into the study's three analyses and writes the artifacts in
-the reference's JSON/CSV schemas.
+over a dataset into the study's analyses and writes the artifacts in the
+reference's JSON/CSV schemas.
 
   * `compute_feature_dataset` — X (N, 220), y, subjects, filenames, metadata
+  * `run_classification` — slow vs fast → results_summary.json,
+    feature_importance_ranked.csv (host scikit-learn, `models/classify.py`)
   * `run_comparison` — EEG↔audio comparison → eeg_audio_tda_comparison.json,
     eeg_audio_tda_detailed.csv
   * `run_control` — matched vs mismatched control → matched_vs_mismatched.json
+  * `write_preprocessed` / `write_graphs` — the preprocessed/ and graphs/
+    artifacts; `write_sample_figures` — sample diagrams, filter response
 
-Every window-level computation runs on the runner's device (CUDA unless
-the store or `device` says "cpu"); the host does batching, the exact
-per-side pairing of control deviants and JSON serialization.  Each stage
-reads its results back once, after its batch loop.  Recordings whose
-reduction overflowed (creator arena, step budget, bar count) are redone
-exactly through `homology_exec.run_tda`, whose flagged windows go to the
-host engine.
+Backends.  With `backend` "auto" or "device" (the main path) every
+window-level computation runs on the runner's device (CUDA unless the store
+or `device` says "cpu") in the fused programs, and each stage reads its
+results back once, after its batch loop; recordings whose reduction
+overflowed (creator arena, step budget, bar count) are redone exactly
+through `homology_exec.run_tda`, whose flagged windows go to the host
+engine.  With `backend="host"` the staged parity path runs instead: the
+distances on the device, every diagram on the host engine, no bank.  With
+`wasserstein_backend="host_exact"` the comparison and the control take the
+staged path and match diagrams exactly on the host (persim's assignment,
+`native.engine.wasserstein_batch`); "sinkhorn" is the fused on-device path.
 
-Not ported: the `host_exact` Wasserstein backend, the staged non-device
-backend, multi-device sharding, `write_preprocessed` / `write_graphs`, the
-classification stage and the figures (the runner says so once when it
-writes artifacts).
+Figures need matplotlib on the host; without it they are skipped with a
+logged `figures_skipped` event and every other artifact is written.
+Not ported: multi-device sharding.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import PipelineConfig, DEFAULT_CONFIG, BAND_NAMES, GOOD_ELECTRODES
+from ..config import (PipelineConfig, DEFAULT_CONFIG, BAND_NAMES, FREQ_BANDS,
+                      GOOD_ELECTRODES)
 from ..io.synthetic import window_sample_indices
 from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std
@@ -41,21 +49,38 @@ from ..ops.wasserstein import (build_cost_matrix, sinkhorn_cost,
                                wasserstein_h0_exact)
 from ..runtime import resolve_device
 from ..utils import logging as tlog
-from ..utils.validation import issues_from_diagnostics
-from . import homology_exec, programs
+from ..utils.profiling import GLOBAL_TIMES
+from ..utils.validation import issues_from_diagnostics, matrix_diagnostics
+from . import classify, homology_exec, programs
 from .classify import features_to_row
 
 BAND_NAMES = list(BAND_NAMES)
 N_BANDS = len(BAND_NAMES)
 
 K_CMP = 15          # windows per recording and band in the comparisons
-K_H1 = 128          # H1 diagram padding of the exact redo, both sides
+K_H0_EEG = 64       # H0 diagram padding of the staged path: EEG ≤ 46 bars
+K_H0_AUD = 128      # audio ≤ 123 bars
+K_H1 = 128          # H1 diagram padding of the staged path, both sides
 FEATS = ("mean_persistence", "total_persistence", "persistence_entropy",
          "max_persistence", "n_features")
 # their columns among the 11 diagram features
 FEAT_COLS = {"mean_persistence": 6, "total_persistence": 9,
              "persistence_entropy": 10, "max_persistence": 8, "n_features": 0}
 WASS_CHUNK = 512    # pairs per un-tiered Sinkhorn call
+WASSERSTEIN_BACKENDS = ("sinkhorn", "host_exact")
+
+
+def _figures_module():
+    """Figures are optional: matplotlib may be absent on a compute host.
+    Every JSON / CSV result is written regardless; the figures are skipped
+    with a message and a logged `figures_skipped` event."""
+    try:
+        from . import figures
+        return figures
+    except ImportError as e:
+        print(f"  figures skipped (matplotlib unavailable: {e})")
+        tlog.LOGGER.event("figures_skipped", error=repr(e))
+        return None
 
 
 def _ref_linspace_idx(n_win: int, k: int) -> np.ndarray:
@@ -80,25 +105,36 @@ def _paired_window_idx(n_pair: int, k: int) -> np.ndarray:
 class StudyRunner:
     """Runs the study over a dataset of recordings: a device-resident
     `io.device_store.DeviceStore` (the main path), or a host dataset with
-    `.index` and `.load(i)` that is staged batch by batch."""
+    `.index` and `.load(i)` that is staged batch by batch.  `backend`
+    (None = cfg.homology_backend): "auto" / "device" take the fused device
+    programs, "host" the staged path with every diagram on the host engine."""
 
     def __init__(self, dataset, cfg: PipelineConfig = DEFAULT_CONFIG,
                  eeg_batch: int = 16, results_dir: str | Path | None = None,
                  verbose: bool = True, eeg_bank: bool = True,
                  feature_na_max: int = 128, t_eeg_pad: int = 5800,
                  t_audio_pad: int = 44100 * 24, n_rs_max: int = 5900,
-                 device=None):
-        if cfg.wasserstein_backend != "sinkhorn":
-            raise NotImplementedError(
-                "only wasserstein_backend='sinkhorn' is ported")
+                 device=None, backend: str | None = None):
+        if cfg.wasserstein_backend not in WASSERSTEIN_BACKENDS:
+            raise ValueError(f"wasserstein_backend {cfg.wasserstein_backend!r} "
+                             f"not in {WASSERSTEIN_BACKENDS}")
+        backend = cfg.homology_backend if backend is None else backend
+        if backend not in homology_exec.BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {homology_exec.BACKENDS}"
+                             " (the port has no Pallas backend)")
         self.ds = dataset
         self.cfg = cfg
+        self.backend = backend
+        # device-class backends take the fused programs; "host" the staged
+        # parity path
+        self.on_device = backend in ("auto", "device")
         self.eeg_batch = eeg_batch
         self.results_dir = Path(results_dir) if results_dir else None
         self.verbose = verbose
         # eeg_bank: the comparison stage reuses the features stage's
-        # per-window EEG diagrams (programs.comparison_from_bank)
-        self.use_eeg_bank = bool(eeg_bank)
+        # per-window EEG diagrams (programs.comparison_from_bank); the bank
+        # rides the fused features program, so the staged path has none
+        self.use_eeg_bank = bool(eeg_bank) and self.on_device
         self._eeg_bank = None
         # features-stage H1 arena width; windows beyond it overflow into the
         # exact redo, so results never change with it
@@ -128,9 +164,13 @@ class StudyRunner:
             self.device = resolve_device(device)
         self._fused_cache = None
         self._bank_served = self._bank_fallback = 0
-        self._figures_note = False
         # what the exact redo did, per stage (recordings), for reports
         self.redo_counts = dict(features=0, comparison=0, control_deviants=0)
+
+    @property
+    def _fused(self) -> bool:
+        """The comparison and the control take the fused device pass."""
+        return self.on_device and self.cfg.wasserstein_backend == "sinkhorn"
 
     # ---------------- data staging ----------------
 
@@ -190,6 +230,87 @@ class StudyRunner:
     def _dev(self, a, dtype=None):
         return torch.as_tensor(a, device=self.device, dtype=dtype)
 
+    # ---------------- stage: EEG distance matrices (graphs/) ----------------
+
+    def eeg_distances(self, idxs):
+        """(len(idxs), 5, W, 47, 47) distance matrices of every window, the
+        window mask (len(idxs), W) and the metas."""
+        eeg, _, ns_e, _, metas = self._load_batch(idxs)
+        dist, _, wmask = programs.eeg_distance_program(
+            eeg, ns_e, self.cfg, self.n_win_max, device=self.device)
+        return dist, wmask, metas
+
+    def _batches(self):
+        for b0 in range(0, len(self.ds), self.eeg_batch):
+            yield list(range(b0, min(b0 + self.eeg_batch, len(self.ds))))
+
+    # ---------------- stage: preprocessed/ artifacts ----------------
+
+    def write_preprocessed(self, out_dir) -> list[dict]:
+        """The reference's preprocessed/ stage
+        (notebooks/1_preprocesamiento.ipynb cell 3): per recording directory
+        `{condition}/{stem}/`, the banded windows `{band}.npy` (n_win, 47,
+        250), `window_times.npy` (window centres, s) and `audio.npy`, plus
+        preprocessing_metadata.csv with the reference's columns."""
+        out_dir = Path(out_dir)
+        cfg = self.cfg
+        win, step = cfg.win_samples, cfg.step_samples
+        meta_rows = []
+        for idxs in self._batches():
+            eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+            wins, wmask = programs.eeg_window_program(
+                eeg, ns_e, cfg, self.n_win_max, device=self.device)
+            wins, wmask = wins.cpu().numpy(), wmask.cpu().numpy()
+            for bi, m in enumerate(metas):
+                d = out_dir / m["condition"] / m["filename"].replace(".mat", "")
+                d.mkdir(parents=True, exist_ok=True)
+                nw = int(wmask[bi].sum())
+                bands_meta = {}
+                for bd, band in enumerate(BAND_NAMES):
+                    arr = wins[bi, bd, :nw]
+                    np.save(d / f"{band}.npy", arr)
+                    bands_meta[band] = dict(
+                        n_windows=nw, window_shape=tuple(arr.shape),
+                        freq_range=tuple(FREQ_BANDS[band]))
+                centers = (np.arange(nw) * step + win / 2) / cfg.fs_eeg
+                np.save(d / "window_times.npy", centers)
+                np.save(d / "audio.npy", audio[bi, :ns_a[bi]].cpu().numpy())
+                meta_rows.append(dict(
+                    filename=m["filename"], n_electrodes=eeg.shape[1],
+                    n_samples=int(ns_e[bi]),
+                    duration_sec=float(ns_e[bi] / cfg.fs_eeg),
+                    fs_eeg=cfg.fs_eeg, bands=str(bands_meta), n_windows=nw,
+                    condition=m["condition"]))
+        with open(out_dir / "preprocessing_metadata.csv", "w", newline="") as f:
+            wr = csv.DictWriter(f, fieldnames=list(meta_rows[0].keys()))
+            wr.writeheader()
+            wr.writerows(meta_rows)
+        return meta_rows
+
+    # ---------------- stage: graphs/ artifacts ----------------
+
+    def write_graphs(self, out_dir) -> int:
+        """The reference's graphs/ stage (notebooks/2_graph_construction.ipynb
+        cell 8): per recording directory, `{band}_correlations.npy` and
+        `{band}_distances.npy` (n_windows, 47, 47).  Returns the number of
+        recordings written."""
+        out_dir = Path(out_dir)
+        n_files = 0
+        for idxs in self._batches():
+            eeg, _, ns_e, _, metas = self._load_batch(idxs)
+            dist, corr, wmask = programs.eeg_distance_program(
+                eeg, ns_e, self.cfg, self.n_win_max, device=self.device)
+            dist, corr, wmask = (x.cpu().numpy() for x in (dist, corr, wmask))
+            for bi, m in enumerate(metas):
+                d = out_dir / m["condition"] / m["filename"].replace(".mat", "")
+                d.mkdir(parents=True, exist_ok=True)
+                nw = int(wmask[bi].sum())
+                for bd, band in enumerate(BAND_NAMES):
+                    np.save(d / f"{band}_correlations.npy", corr[bi, bd, :nw])
+                    np.save(d / f"{band}_distances.npy", dist[bi, bd, :nw])
+                n_files += 1
+        return n_files
+
     # ---------------- stage: classification features ----------------
 
     def _feature_window_sample(self, idxs, counts, K, Kx):
@@ -221,7 +342,10 @@ class StudyRunner:
         reference's (scripts/tda_eeg_classification_v2.py:445-606).
         batch_start / batch_end slice the ordered file list for job-level
         sharding; the "min" equalization stays global so shards agree.
-        Failed and zero-window recordings get no row."""
+        Failed and zero-window recordings get no row.  The fused path reads
+        the stage back once; the staged path (`backend="host"`) computes the
+        distances of every window on the device, selects the sampled ones
+        and reduces them on the host engine."""
         cfg = self.cfg
         win, step = cfg.win_samples, cfg.step_samples
         by_name = lambda i: self.ds.index[i][0]  # noqa: E731
@@ -260,6 +384,10 @@ class StudyRunner:
         for b0 in range(0, len(all_idx), self.eeg_batch):
             idxs = all_idx[b0:b0 + self.eeg_batch]
             use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
+            if not self.on_device:
+                pending.append((self._staged_features(idxs, use_idx, use_mask),
+                                idxs))
+                continue
             eeg, _, ns_e, _, _ = self._load_batch(idxs)
             outs = programs.eeg_feature_program(
                 eeg, ns_e, use_idx, use_mask, cfg, self.n_win_max, Kx,
@@ -280,20 +408,24 @@ class StudyRunner:
                 print(f"  features: {b0 + len(idxs)}/{len(all_idx)} recordings "
                       f"dispatched ({time.time() - t0:.0f}s)")
 
-        # the stage's one read-back
-        flat = torch.cat([p for p, _ in pending]).cpu().numpy()
+        if self.on_device:      # the stage's one read-back
+            flat = torch.cat([p for p, _ in pending]).cpu().numpy()
+            done, off = [], 0
+            for packed, idxs in pending:
+                n = packed.shape[0]
+                outs_h = programs.unpack_feature_outputs(
+                    flat[off:off + n], len(idxs), has_bank=with_bank)
+                off += n
+                done.append((outs_h[0].copy(), *outs_h[1:3],
+                             outs_h[3] if with_bank else None, idxs))
+        else:   # the staged path's batches are on the host already
+            done = [(*out, None, idxs) for out, idxs in pending]
         X_rows, y, subjects, filenames, file_metadata = [], [], [], [], []
-        off = 0
-        for packed, idxs in pending:
-            n = packed.shape[0]
-            outs_h = programs.unpack_feature_outputs(flat[off:off + n], len(idxs),
-                                                     has_bank=with_bank)
-            off += n
-            agg, diag, ovf = outs_h[0].copy(), outs_h[1], outs_h[2]
+        for agg, diag, ovf, bank_ovf, idxs in done:
             for b, i in enumerate(idxs):
                 if i in self._failed_idx:   # failed on the batch's re-load
                     continue
-                if with_bank and outs_h[3][b]:
+                if bank_ovf is not None and bank_ovf[b]:
                     # a truncated diagram on ANY column (possibly a union
                     # column outside `ovf`): the row cannot serve the
                     # comparison; the feature aggregate is redone only when
@@ -337,6 +469,27 @@ class StudyRunner:
                      skipped_zero_window=skipped_zero,
                      file_metadata=file_metadata))
 
+    def _staged_features(self, idxs, use_idx, use_mask):
+        """The staged features path of one batch: the distances of every
+        window (`eeg_distance_program`), the sampled (B, 5, K) of them
+        reduced by `run_tda` on the runner's backend, and the window-0
+        diagnostics from the host.  Returns host (agg (B, 5, 2, 11, 2),
+        diag (B, 5, 8), ovf (B,) all False: run_tda leaves no window
+        truncated)."""
+        B, _, K = use_idx.shape
+        dist, _, _ = self.eeg_distances(idxs)
+        n = dist.shape[-1]
+        sel = dist.gather(2, self._dev(use_idx)[:, :, :, None, None]
+                          .expand(-1, -1, -1, n, n))
+        tda = homology_exec.run_tda(sel.reshape(B * N_BANDS * K, n, n),
+                                    self.cfg.max_edge_length,
+                                    verbose=self.verbose, backend=self.backend)
+        agg = aggregate_mean_std(tda["features"].reshape(B, N_BANDS, K, 22),
+                                 self._dev(use_mask))
+        return (agg.reshape(B, N_BANDS, 2, 11, 2).cpu().numpy(),
+                matrix_diagnostics(dist[:, :, 0].cpu().numpy()),
+                np.zeros(B, bool))
+
     def _staged_feature_agg(self, idxs, counts, K):
         """(len(idxs), 5, 2, 11, 2) feature aggregate through `run_tda`,
         which redoes overflowed windows on the host engine — for recordings
@@ -349,7 +502,7 @@ class StudyRunner:
         n = dist.shape[-1]
         tda = homology_exec.run_tda(dist.reshape(B * N_BANDS * K, n, n),
                                     self.cfg.max_edge_length, na_max=128,
-                                    verbose=self.verbose)
+                                    verbose=self.verbose, backend=self.backend)
         agg = aggregate_mean_std(tda["features"].reshape(B, N_BANDS, K, 22),
                                  self._dev(use_mask))
         return agg.reshape(B, N_BANDS, 2, 11, 2).cpu().numpy()
@@ -364,7 +517,7 @@ class StudyRunner:
         out = homology_exec.run_tda(
             aud["dm"].reshape(-1, P, P), self.cfg.max_edge_length,
             n_pts=aud["n_pts"].reshape(-1), step_budget=8192,
-            verbose=self.verbose)
+            verbose=self.verbose, backend=self.backend)
         return aud, out
 
     def _eeg_clouds(self, eeg, ns_e, use_idx, n_win):
@@ -374,7 +527,7 @@ class StudyRunner:
         n = dist.shape[-1]
         return homology_exec.run_tda(dist.reshape(-1, n, n),
                                      self.cfg.max_edge_length,
-                                     verbose=self.verbose)
+                                     verbose=self.verbose, backend=self.backend)
 
     def _comparison_diagrams(self, idxs):
         """Per recording: EEG + audio diagrams on the ≤ 15 comparison
@@ -505,22 +658,36 @@ class StudyRunner:
     # ---------------- Wasserstein between EEG and audio diagrams ----------------
 
     def _wasserstein_h0h1(self, eeg_out, aud_out, pair_mask):
-        """W_H0 (exact DP) and W_H1 (un-tiered Sinkhorn) of window-paired
-        diagrams, flat (N,) tensors; NaN where pair_mask is False."""
-        def h0(out):
-            d = out["h0_deaths"]
-            return torch.where(torch.isfinite(d), d, 0.0), out["h0_mask"]
+        """W_H0 and W_H1 of window-paired diagrams, flat (N,) tensors; NaN
+        where pair_mask is False.  H0 (every birth 0): the exact DP with
+        "sinkhorn", the host assignment with "host_exact"; H1 through
+        `_wass_chunks`."""
+        def h0(out, K):
+            d = out["h0_deaths"][:, :K]
+            return torch.where(torch.isfinite(d), d, 0.0), out["h0_mask"][:, :K]
 
-        w_h0 = wasserstein_h0_exact(*h0(eeg_out), *h0(aud_out))
+        (e_d, e_m), (a_d, a_m) = h0(eeg_out, K_H0_EEG), h0(aud_out, K_H0_AUD)
+        if self.cfg.wasserstein_backend == "sinkhorn":
+            w_h0 = wasserstein_h0_exact(e_d, e_m, a_d, a_m)
+        else:
+            w_h0 = self._wass_chunks(torch.zeros_like(e_d), e_d, e_m,
+                                     torch.zeros_like(a_d), a_d, a_m)
         w_h1 = self._wass_chunks(*self._h1_padded(eeg_out),
                                  *self._h1_padded(aud_out))
         nan = torch.full_like(w_h0, float("nan"))
         return torch.where(pair_mask, w_h0, nan), torch.where(pair_mask, w_h1, nan)
 
-    @staticmethod
-    def _wass_chunks(b1, d1, m1, b2, d2, m2):
-        """Sinkhorn Wasserstein (persim cost semantics) of (N, K) padded
-        diagram pairs at full width, WASS_CHUNK pairs per call."""
+    def _wass_chunks(self, b1, d1, m1, b2, d2, m2):
+        """Wasserstein distances (persim semantics) of (N, K) padded diagram
+        pairs: with "host_exact" the exact assignment on the host
+        (`native.engine.wasserstein_batch`, persim's Hungarian matching),
+        with "sinkhorn" the un-tiered Sinkhorn on the device at full width,
+        WASS_CHUNK pairs per call.  Returns (N,) on the inputs' device."""
+        if self.cfg.wasserstein_backend == "host_exact":
+            from ..native.engine import wasserstein_batch
+
+            w = wasserstein_batch(*(x.cpu().numpy() for x in (b1, d1, m1, b2, d2, m2)))
+            return torch.as_tensor(w, device=b1.device)
         outs = [sinkhorn_cost(build_cost_matrix(
             *(x[c:c + WASS_CHUNK] for x in (b1, d1, m1, b2, d2, m2))))
             for c in range(0, b1.shape[0], WASS_CHUNK)]
@@ -750,10 +917,14 @@ class StudyRunner:
     def run_comparison(self, n_permutations: int | None = None) -> dict:
         """Hypothesis-2 analysis → the eeg_audio_tda_comparison.json schema.
 
-        Recordings flagged `overflow` by the fused pass are recomputed
-        through `_staged_comparison_rows` (exact diagrams); their flag stays
-        set so the control stage redoes them exactly too."""
+        The fused pass (device backend, Sinkhorn) recomputes the recordings
+        it flagged `overflow` through `_staged_comparison_rows` (exact
+        diagrams); their flag stays set so the control stage redoes them
+        exactly too.  Otherwise every recording takes the staged path."""
         n_perm = n_permutations or 1000
+        if not self._fused:
+            rows = self._staged_comparison_rows(list(range(len(self.ds))))
+            return self._comparison_stats(rows, n_perm)
         rows = [r for r in self._fused_rows() if r["n_windows"] > 0]
         ovf_keys = sorted({(r["filename"], r["condition"])
                            for r in rows if r.get("overflow")})
@@ -778,9 +949,10 @@ class StudyRunner:
         return out
 
     def _staged_comparison_rows(self, all_idx) -> list[dict]:
-        """Comparison rows from exact diagrams (`run_tda`, overflowed
-        windows on the host engine) and the un-tiered Sinkhorn — the redo
-        path of recordings the fused pass flagged."""
+        """Comparison rows through the staged pipeline: diagrams from
+        `run_tda` on the runner's backend (overflowed windows on the host
+        engine) and `_wass_chunks` — the parity path, also the redo path of
+        recordings the fused pass flagged."""
         rows = []
         t0 = time.time()
         for b0 in range(0, len(all_idx), self.eeg_batch):
@@ -838,7 +1010,7 @@ class StudyRunner:
                     row[f"corr_{fname}_r"] = float(r_all[ti])
                     row[f"corr_{fname}_p"] = float(p_all[ti])
             if self.verbose:
-                print(f"  comparison redo: {b0 + len(idxs)}/{len(all_idx)} "
+                print(f"  comparison (staged): {b0 + len(idxs)}/{len(all_idx)} "
                       f"({time.time() - t0:.0f}s)")
         return rows
 
@@ -960,16 +1132,10 @@ class StudyRunner:
             (self.results_dir / "eeg_audio_tda_comparison.json").write_text(
                 json.dumps(slim, indent=2, default=str))
             self._write_detailed_csv(rows)
-            self._note_no_figures()
+            figures = _figures_module()
+            if figures:
+                figures.comparison_figures(rows, stats_out, self.results_dir)
         return out
-
-    def _note_no_figures(self):
-        """Figures are not ported: say so once per runner, not silently."""
-        if not self._figures_note:
-            self._figures_note = True
-            tlog.LOGGER.event("figures_skipped", reason="not ported")
-            if self.verbose:
-                print("  figures skipped (figure generation is not ported)")
 
     def _write_detailed_csv(self, rows):
         """eeg_audio_tda_detailed.csv with the reference's exact column set;
@@ -995,9 +1161,10 @@ class StudyRunner:
         audio; mismatched = EEG vs the subject's FIRST recording of the
         opposite condition; each side subsamples over its OWN window count
         and pairing is positional after the audio's degenerate windows are
-        compacted out.  The fused comparison's per-recording values are
-        reused where they provably coincide with those semantics, and the
-        deviants are redone exactly (`_control_rows_exact`)."""
+        compacted out.  On the fused path the comparison's per-recording
+        values are reused where they provably coincide with those semantics,
+        and the deviants are redone exactly (`_control_rows_exact`); on the
+        staged path every recording goes through `_control_rows_exact`."""
         by_subj = defaultdict(lambda: defaultdict(list))
         for i in range(len(self.ds)):
             fn, subj, cond = self.ds.index[i]
@@ -1014,7 +1181,11 @@ class StudyRunner:
         all_idx = [i for s in common for c in ("slow", "fast")
                    for i in by_subj[s][c]]
         t0 = time.time()
-        rows = self._control_rows_fused(all_idx, mis_idx)
+        if self._fused:
+            rows = self._control_rows_fused(all_idx, mis_idx)
+        else:
+            mis_cache = self._mismatch_own_cache(sorted(set(mis_idx.values())))
+            rows = self._control_rows_exact(all_idx, mis_idx, mis_cache)
         tlog.LOGGER.stage("control_rows", time.time() - t0, items=len(rows))
         return self._control_stats(rows)
 
@@ -1135,3 +1306,69 @@ class StudyRunner:
             (self.results_dir / "matched_vs_mismatched.json").write_text(
                 json.dumps(results, indent=2, default=str))
         return results
+
+    # ---------------- figures: sample diagrams + filter response ----------------
+
+    def write_sample_figures(self) -> list[str]:
+        """Sample persistence-diagram figures (first recording, window 0 of
+        each band) and the filter-response figure — the reference's figures
+        that are not derived from the results JSON.  Returns the file names
+        written (none without results_dir or matplotlib)."""
+        if not self.results_dir:
+            return []
+        figures = _figures_module()
+        if figures is None:
+            return []
+        d = self._comparison_diagrams(list(range(min(self.eeg_batch, len(self.ds)))))
+        K = d["shape"][2]
+
+        def dgm(out, flat):
+            o = {k: out[k][flat].cpu().numpy() for k in
+                 ("h0_deaths", "h0_mask", "births", "deaths", "mask")}
+            h0m = o["h0_mask"] & np.isfinite(o["h0_deaths"])
+            h1m = o["mask"] & np.isfinite(o["deaths"])
+            return {"h0": np.stack([np.zeros(int(h0m.sum())), o["h0_deaths"][h0m]], -1),
+                    "h1": np.stack([o["births"][h1m], o["deaths"][h1m]], -1)}
+
+        eeg_dgms = {band: dgm(d["eeg"], bd * K) for bd, band in enumerate(BAND_NAMES)}
+        audio_dgms = {band: dgm(d["audio"], bd * K)
+                      for bd, band in enumerate(BAND_NAMES)}
+        written = figures.persistence_figures(eeg_dgms, audio_dgms, self.results_dir)
+        written += figures.filter_response_figure(self.cfg, self.results_dir)
+        return written
+
+    # ---------------- analysis: classification ----------------
+
+    def run_classification(self, n_permutations: int | None = None,
+                           n_bootstrap: int | None = None) -> dict:
+        """Hypothesis 1, slow vs fast: the features stage, then the host
+        Random Forest stage (`classify.run_classification`) →
+        results_summary.json, feature_importance_ranked.csv, the features'
+        metadata.csv / metadata.json and the classification figures."""
+        with GLOBAL_TIMES.stage("features", items=len(self.ds)):
+            X, y, subjects, filenames, meta = self.compute_feature_dataset()
+        res = classify.run_classification(
+            X, y, subjects, classify.feature_names_220(), self.cfg,
+            n_permutations=n_permutations, n_bootstrap=n_bootstrap,
+            verbose=self.verbose)
+        file_metadata = meta.pop("file_metadata", [])
+        res["window_equalization"] = meta
+        null_scores = res.pop("null_scores", [])
+        boot_scores = res.pop("bootstrap_scores", [])
+        if self.results_dir:
+            self.results_dir.mkdir(parents=True, exist_ok=True)
+            from ..cli import _write_feature_metadata
+            _write_feature_metadata(self.results_dir, file_metadata)
+            figures = _figures_module()
+            if figures:
+                figures.classification_figures(res, null_scores, boot_scores,
+                                               self.results_dir)
+            ranked = res.pop("all_importances", {})
+            (self.results_dir / "results_summary.json").write_text(
+                json.dumps(res, indent=2))
+            # feature_importance_ranked.csv (reference results artifact)
+            with open(self.results_dir / "feature_importance_ranked.csv", "w") as f:
+                f.write("rank,feature,importance\n")
+                for rk, (name, imp) in enumerate(ranked.items(), 1):
+                    f.write(f"{rk},{name},{imp}\n")
+        return res

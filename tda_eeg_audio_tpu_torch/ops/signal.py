@@ -1,9 +1,10 @@
 """Signal-processing ops of the study slice (counterpart of the reference's
 `ops/signal.py`): host-side numpy/scipy filter design, and batched tensor
 ops — FFT FIR bank, sliding windows, FIR Hilbert envelope, block-Toeplitz
-polyphase resample, autocorrelation τ, Takens embedding.
+polyphase resample, autocorrelation τ, Takens embedding, and the Welch
+power spectrum of the EDA stage.
 
-The exact IIR-scan filters and `welch_psd` are not ported yet.
+The exact IIR-scan filters are not ported yet.
 """
 
 from __future__ import annotations
@@ -279,3 +280,46 @@ def minmax_normalize_points(points: torch.Tensor, mask: torch.Tensor) -> torch.T
     rng = torch.where(rng == 0, torch.ones_like(rng), rng)
     out = (points - pmin) / rng
     return torch.where(m, out, torch.zeros_like(out))
+
+
+def welch_psd(x: torch.Tensor, fs: float = 250.0, nperseg: int = 256,
+              noverlap: int | None = None, n=None):
+    """Welch power spectral density along the last axis on x's device (scipy
+    semantics: Hann window, per-segment constant detrend, density scaling,
+    one-sided): x (..., T) → (freqs (F,), Pxx (..., F)), F = nperseg//2 + 1.
+
+    n: optional true lengths, broadcastable to x.shape[:-1].  Only segments
+    that end inside [0, n) are averaged (the first segment where none does):
+    the zero-padded tail would otherwise attenuate each recording's power by
+    its padding fraction.  Needs T ≥ nperseg."""
+    if noverlap is None:
+        noverlap = nperseg // 2
+    step = nperseg - noverlap
+    T = x.shape[-1]
+    if T < nperseg:
+        raise ValueError(f"signal of {T} samples is shorter than nperseg={nperseg}")
+    dev = x.device
+    n_seg = (T - nperseg) // step + 1
+    idx = (torch.arange(n_seg, device=dev)[:, None] * step
+           + torch.arange(nperseg, device=dev)[None, :])
+    segs = x[..., idx]                                   # (..., n_seg, nperseg)
+    segs = segs - segs.mean(dim=-1, keepdim=True)
+    k = torch.arange(nperseg, device=dev, dtype=torch.float32)
+    win = (0.5 - 0.5 * torch.cos(2 * np.pi * k / nperseg)).to(x.dtype)
+    X = torch.fft.rfft(segs * win, dim=-1)
+    Pxx = (X.real ** 2 + X.imag ** 2) / (fs * (win ** 2).sum())
+    # one-sided doubling, except DC and (for even nperseg) Nyquist
+    dbl = torch.full((Pxx.shape[-1],), 2.0, dtype=Pxx.dtype, device=dev)
+    dbl[0] = 1.0
+    if nperseg % 2 == 0:
+        dbl[-1] = 1.0
+    Pxx = Pxx * dbl
+    freqs = torch.fft.rfftfreq(nperseg, 1.0 / fs, device=dev)
+    if n is None:
+        return freqs, Pxx.mean(dim=-2)
+    ends = torch.arange(n_seg, device=dev) * step + nperseg
+    n_b = torch.as_tensor(n, device=dev).expand(x.shape[:-1])[..., None]
+    smask = ends <= n_b                                  # (..., n_seg)
+    smask[..., 0] |= ~smask.any(dim=-1)
+    w = smask[..., None].to(Pxx.dtype)
+    return freqs, (Pxx * w).sum(dim=-2) / w.sum(dim=-2).clamp(min=1.0)

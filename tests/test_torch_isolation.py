@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of `tda_eeg_audio_tpu_torch`,
 `chip_smoke` and `bench_torch` loads neither JAX nor the reference package,
-and no source of the port names them."""
+and no source of the port names them.  The entry points the card's commands
+import (the CLI, the runner, `chip_smoke`, `bench_torch`) load neither
+scikit-learn nor matplotlib: the card's machine has neither."""
 import pkgutil
 import re
 import subprocess
@@ -22,7 +24,8 @@ def test_imports_load_no_jax_and_no_reference_package():
     mods = _modules()
     for name in ("ops.homology_cuda", "models.study", "models.homology_exec",
                  "models.classify", "io.device_store", "native.engine",
-                 "utils.validation", "utils.logging"):
+                 "utils.validation", "utils.logging", "cli", "io.matfiles",
+                 "models.eda", "models.figures", "utils.profiling"):
         assert f"tda_eeg_audio_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -30,6 +33,23 @@ def test_imports_load_no_jax_and_no_reference_package():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'tda_eeg_audio_tpu' or m.startswith('tda_eeg_audio_tpu.'))\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"loaded: {res.stdout.strip()}"
+
+
+def test_entry_points_load_neither_sklearn_nor_matplotlib():
+    mods = ["tda_eeg_audio_tpu_torch.cli", "tda_eeg_audio_tpu_torch.models.study",
+            "tda_eeg_audio_tpu_torch.models.eda",
+            "tda_eeg_audio_tpu_torch.models.classify", "chip_smoke", "bench_torch"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('sklearn', 'matplotlib', 'joblib'))\n"
         "print(','.join(bad))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

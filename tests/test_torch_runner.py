@@ -183,7 +183,11 @@ def test_artifacts_have_the_reference_schemas(runs):
     with open(runs["tdir"] / name) as ft, open(runs["jdir"] / name) as fj:
         rt, rj = list(csv.reader(ft)), list(csv.reader(fj))
     assert rt[0] == rj[0] and len(rt) == len(rj) == 36
-    assert not list(runs["tdir"].glob("*.png"))     # figures are not ported
+    # the comparison's figures, under the reference's names
+    figs = sorted(str(p.relative_to(runs["tdir"])) for p in runs["tdir"].rglob("*.png"))
+    assert figs == sorted(str(p.relative_to(runs["jdir"]))
+                          for p in runs["jdir"].rglob("*.png"))
+    assert len(figs) == 4
 
 
 def test_host_dataset_staging_matches_store(runs):
@@ -212,9 +216,15 @@ def test_host_dataset_staging_matches_store(runs):
     assert e.shape[0] == a.shape[0] == 3 and len(m) == 1
     assert not bool(e[1:].any()) and not bool(a[1:].any())
     assert ne.tolist()[1:] == [250, 250] and na.tolist()[1:] == [44100, 44100]
-    with pytest.raises(NotImplementedError):
-        tstudy.StudyRunner(tr.store, dataclasses.replace(
-            tr.cfg, wasserstein_backend="host_exact"))
+    # the exact backend is a staged path now; unknown backends are refused
+    exact = tstudy.StudyRunner(tr.store, dataclasses.replace(
+        tr.cfg, wasserstein_backend="host_exact"), t_eeg_pad=T_EEG_PAD,
+        t_audio_pad=T_AUDIO_PAD)
+    assert exact.on_device and not exact._fused
+    for bad in (dict(wasserstein_backend="pot"), dict(homology_backend="pallas")):
+        with pytest.raises(ValueError):
+            tstudy.StudyRunner(tr.store, dataclasses.replace(tr.cfg, **bad),
+                               t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD)
 
 
 def _synthetic_rows(n_subjects=8, seed=3):

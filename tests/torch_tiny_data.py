@@ -1,5 +1,6 @@
 """A tiny in-memory dataset for the port's runner-level tests (0.2 s
-windows, pads 600 / 97,020 / 560)."""
+windows, pads 600 / 97,020 / 560), and short `.mat` recordings for its
+command-line tests."""
 import numpy as np
 
 T_EEG_PAD, T_AUDIO_PAD, N_RS_MAX = 600, 97_020, 560
@@ -45,3 +46,27 @@ class TinyDataset:
         return dict(filename=fn, subject=subj, condition=cond,
                     eeg_raw=rng.standard_normal((65, n_e)).astype(np.float32),
                     audio=(audio / np.abs(audio).max()).astype(np.float32))
+
+
+MAT_DURATIONS = (1.3, 1.8, 2.1, 1.5, 1.9, 1.4, 2.0, 2.2)
+
+
+def write_mat_recordings(root, durations=MAT_DURATIONS, seed=0):
+    """len(durations) / 2 subjects × {slow, fast} recordings of the given
+    seconds in the reference's layout (root/slow, root/fast; keys `subeeg`
+    transposed to samples × 65, stereo `y`, `Fs`), made from a seed; they fit
+    the pads above at 1 s windows."""
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(seed)
+    durs = iter(durations)
+    n_subjects = len(durations) // 2
+    for cond in ("slow", "fast"):
+        (root / cond).mkdir(parents=True)
+        for s in range(1, n_subjects + 1):
+            dur = next(durs)
+            n_e, n_a = int(round(250 * dur)), int(round(44100 * dur))
+            savemat(root / cond / f"bb{s:02d}_ut01.mat",
+                    dict(subeeg=rng.standard_normal((65, n_e)).T,
+                         y=rng.standard_normal((n_a, 2)), Fs=np.array([[44100]])))
+    return root
