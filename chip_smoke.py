@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernel and its instrumented twin (two nvcc side by
-     side, sm_90a) from the sources in the checkout;
+  2. build the CUDA kernels — the H1 reduction, its instrumented twin and
+     the sosfiltfilt recurrence (three nvcc side by side, sm_90a) — from the
+     sources in the checkout;
   3. hold the kernel against its plain PyTorch version on the card, at the
      shapes of the main path: the features stage's n = 47 EEG windows and
      the comparison's n = 124 Takens clouds of one 16-recording batch —
@@ -44,6 +45,23 @@ Phases, each fatal on failure:
      exact-vs-Sinkhorn difference of wasserstein_h1 per band (a reading, not
      a gate) and the `cli` line.  classify, ablate and study are not run:
      the card's machine has neither scikit-learn nor matplotlib;
+ 10. the exact IIR bank (`filter_impl="iir_scan"`): the sosfiltfilt kernel
+     against its plain recurrence on the card (2 recordings × 47 channels
+     × 5 bands, T_pad 5800, lengths 5800 / 4,100 / one n ≤ edge; within
+     1e-6 × the band's max|ref|) and against scipy's float64 sosfiltfilt on
+     a few series (1e-5), then at the main path's 16-recording shape
+     (timed, held to plain too); then the runner over phase 6's 96
+     recordings with `filter_impl="iir_scan"`, both kernels' launches
+     counted from 0, and its X held to phase 6's FIR X under
+     tests/test_fir_parity.py's gates;
+ 11. two processes on the card: `cli.main(["features", ...,
+     "--coordinator", ..., "--num-processes", "2", "--process-id", i])`
+     (what `python -m tda_eeg_audio_tpu_torch.cli` runs) as two
+     subprocesses over gloo on cuda:0 on phase 9's kind of .mat files, then
+     `--merge-partials` and one single-process run in this process: X, y
+     and subjects equal bit for bit; in the same two ranks
+     `parallel.sharding.sharded_stats_step` equal to this process's
+     Wilcoxon + BH-FDR on the whole array;
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package, nor scikit-learn or
 matplotlib.
@@ -68,6 +86,15 @@ K_CMP = 15          # comparison windows per band
 N_WIN_MAX = 90
 N_RS_MAX = 5900
 HBM_BYTES_PER_S = 3.35e12
+# FP64 rate of an H100 SXM outside the tensor cores (NVIDIA's data sheet)
+FP64_FLOPS_PER_S = 34e12
+# FP64 operations per section and sample of the biquad (3 FMA + 2 MUL + 1 ADD)
+IIR_FLOPS = 9
+# assumed latency of a dependent FP64 FMA (not measured): the chain-floor
+# estimate is 2 such latencies per sample and pass (y → z1 → y) at the card's
+# max SM clock; it is printed on phase 10's line only, never in the `kernels`
+# line, where the lone series' measured time stands for the latency floor
+FP64_FMA_CYCLES = 8
 # int32 ALU peak of an H100 SXM, from its published 67 TFLOP/s float32 rate
 # outside the tensor cores: an FMA counts 2 FLOPs, and an SM has half as
 # many INT32 lanes as FP32 lanes, so 67e12 / 4 one-op-per-clock int32 ops/s
@@ -429,20 +456,24 @@ def runner_phase(store, cfg, **runner_kw):
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
     from tda_eeg_audio_tpu_torch.models.study import BAND_NAMES, StudyRunner
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+    from tda_eeg_audio_tpu_torch.ops.iir_cuda import sosfiltfilt_bank_cuda
 
     n_rec = len(store)
-    secs, launches = {}, {}
+    secs, launches, iir_launches = {}, {}, {}
     with tempfile.TemporaryDirectory() as td:
         runner = StudyRunner(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                              results_dir=td, verbose=False, **runner_kw)
         redone0 = run_tda.redone
         h1_diagrams_cuda.launches = 0
+        sosfiltfilt_bank_cuda.launches = 0
 
         def stage(name, fn):
             before = h1_diagrams_cuda.launches
+            before_iir = sosfiltfilt_bank_cuda.launches
             out, ms = wall_ms(fn)
             secs[name] = ms / 1e3
             launches[name] = h1_diagrams_cuda.launches - before
+            iir_launches[name] = sosfiltfilt_bank_cuda.launches - before_iir
             return out
 
         X, y, subjects, filenames, meta = stage(
@@ -451,6 +482,7 @@ def runner_phase(store, cfg, **runner_kw):
                         lambda: runner.run_comparison(n_permutations=1000))
         ctl = stage("control", runner.run_control)
         total = h1_diagrams_cuda.launches
+        total_iir = sosfiltfilt_bank_cuda.launches
         artifacts = sorted(p.name for p in Path(td).iterdir())
     rows = cmp_out["detailed_rows"]
     problems = []
@@ -474,14 +506,20 @@ def runner_phase(store, cfg, **runner_kw):
                             f"p-values {ps}")
     if min(launches.values()) <= 0:
         problems.append(f"kernel launches by stage {launches}")
+    # the IIR bank filters the EEG of every features batch (and of the
+    # control's exact pairing); the FIR path launches it nowhere
+    if (iir_launches["features"] > 0) != (cfg.filter_impl == "iir_scan"):
+        problems.append(f"sosfiltfilt launches by stage {iir_launches}")
     if runner.redo_counts["control_deviants"] < 1:
         problems.append("the control's exact redo did not run")
     expect = {"eeg_audio_tda_comparison.json", "eeg_audio_tda_detailed.csv",
               "matched_vs_mismatched.json"}
     if set(artifacts) != expect:
         problems.append(f"artifacts {artifacts}")
-    report = dict(recordings=n_rec, seconds=secs, launches=launches,
-                  launches_total=total, K=meta["K"],
+    report = dict(recordings=n_rec, filter_impl=cfg.filter_impl, seconds=secs,
+                  launches=launches, launches_total=total,
+                  sosfiltfilt_launches=iir_launches,
+                  sosfiltfilt_launches_total=total_iir, K=meta["K"],
                   bank_served=runner._bank_served,
                   bank_fallback=runner._bank_fallback,
                   control_deviants_redone=runner.redo_counts["control_deviants"],
@@ -492,7 +530,7 @@ def runner_phase(store, cfg, **runner_kw):
                   w_h1_p={b: cmp_out["band_results"][b]["wass_h1_p"]
                           for b in BAND_NAMES},
                   control_p={b: ctl[b]["p"] for b in BAND_NAMES})
-    return report, problems
+    return report, problems, X
 
 
 def bank_vs_in_call(store, cfg, **runner_kw):
@@ -762,6 +800,240 @@ def cli_phase():
     return report, exact_vs_sinkhorn, x_ratio, problems
 
 
+def max_sm_clock_hz() -> float:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def iir_bound(n, T: int, n_bands: int, n_sections: int, edge: int, clock_hz):
+    """The sosfiltfilt kernel's least time on this run's data: bytes (x read
+    once, the bands written once, n and the coefficients) over HBM, FP64
+    operations (IIR_FLOPS per section and sample over both passes: the
+    forward pass's n + 2·edge samples and the backward's n + edge a chain)
+    over the FP64 rate; and an estimate of the chain floor, 2 dependent FP64
+    FMAs per sample and pass on the longest chain at an assumed
+    FP64_FMA_CYCLES each.  n: one length per series."""
+    n = n.reshape(-1).clamp(0, T).double()
+    n_series = n.numel()
+    samples = (2 * n + 3 * edge) * n_bands                   # per series
+    flops = float(samples.sum()) * n_sections * IIR_FLOPS
+    bytes_ = n_series * T * 4 + n_series * 4 + n_series * n_bands * T * 4 \
+        + n_bands * n_sections * 8 * 8
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    chain = float(2 * n.max() + 3 * edge) * 2 * FP64_FMA_CYCLES / clock_hz * 1e3
+    return dict(t_bytes=t_bytes, t_ops=t_ops, chain_estimate_ms=chain,
+                bytes=bytes_, flops=flops)
+
+
+def iir_kernel_check(dev, eeg16, n16, clock_hz):
+    """Phase 10a: the sosfiltfilt kernel against its plain recurrence on the
+    card and against scipy.  Returns a dict of the comparisons and timings
+    at the ragged 2-recording shape and at the main path's 16-recording
+    batch (eeg16 (16, 47, T_pad), n16 (16,)).  The launches made here are
+    not counted."""
+    import numpy as np
+    import torch
+    from scipy import signal as sps
+
+    from tda_eeg_audio_tpu_torch.ops import iir_cuda as IC
+    from tda_eeg_audio_tpu_torch.ops import signal as S
+
+    sos, zi = S.design_butter_band_bank(250, 4)
+    edge = S.sos_edge(sos)
+    nb, n_sec = sos.shape[:2]
+    T = eeg16.shape[-1]
+    launches0 = IC.sosfiltfilt_bank_cuda.launches
+    # 2 recordings × 47 channels of random walk + noise, made on the card
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.cumsum(torch.randn((2, 47, T), generator=gen, device=dev), -1)
+         + torch.randn((2, 47, T), generator=gen, device=dev))
+    n = torch.full((2, 47), T, dtype=torch.int64, device=dev)
+    n[1] = 4100
+    n[1, 46] = edge - 7                                   # n ≤ edge
+    x = torch.where(torch.arange(T, device=dev) < n[..., None], x, 0.0).contiguous()
+
+    def compare(xx, nn):
+        got = IC.sosfiltfilt_bank_cuda(xx, nn, sos, zi, edge)
+        ref, plain_ms = wall_ms(lambda: S.bandpass_bank_iir_plain(xx, nn, sos, zi))
+        err = (got - ref).abs().amax(dim=tuple(i for i in range(got.dim()) if i != got.dim() - 2))
+        scale = ref.abs().amax(dim=tuple(i for i in range(ref.dim()) if i != ref.dim() - 2))
+        rel = (err / scale.clamp(min=1e-30)).max().item()
+        beyond = torch.arange(T, device=dev) >= nn[..., None, None]
+        zeros = bool((got.masked_select(beyond.expand(got.shape)) == 0).all())
+        IC.sosfiltfilt_bank_cuda(xx, nn, sos, zi, edge)          # warm
+        ms = cuda_ms(lambda: IC.sosfiltfilt_bank_cuda(xx, nn, sos, zi, edge), reps=5)
+        return got, dict(max_abs_err=err.max().item(), max_rel_err=rel,
+                         zeros_beyond_n=zeros, ms=ms, plain_ms=plain_ms,
+                         chains=int(xx[..., 0].numel()) * nb,
+                         **iir_bound(nn.expand(xx.shape[:-1]), T, nb, n_sec,
+                                     edge, clock_hz))
+
+    got2, ragged = compare(x, n)
+    # scipy float64 sosfiltfilt on a few series longer than edge
+    xs, ns = x.double().cpu().numpy(), n.cpu().numpy()
+    got2 = got2.double().cpu().numpy()
+    sci = 0.0
+    for r, c in ((0, 0), (0, 23), (1, 5), (1, 45)):
+        for b in range(nb):
+            ref = sps.sosfiltfilt(sos[b], xs[r, c, :ns[r, c]])
+            sci = max(sci, float(np.abs(got2[r, c, b, :ns[r, c]] - ref).max()
+                                 / np.abs(ref).max()))
+    ragged["scipy_max_rel_err"] = sci
+    n16 = torch.as_tensor(n16, device=dev).long()[:, None]
+    _, main = compare(eeg16.contiguous(), n16)
+    # one series (5 chains in one warp) at the main path's length: the time
+    # of a lone chain, against which the batch's time reads as latency
+    one = eeg16[:1, :1].contiguous()
+    IC.sosfiltfilt_bank_cuda(one, n16[:1], sos, zi, edge)
+    main["one_series_ms"] = cuda_ms(
+        lambda: IC.sosfiltfilt_bank_cuda(one, n16[:1], sos, zi, edge), reps=5)
+    IC.sosfiltfilt_bank_cuda.launches = launches0
+    return dict(edge=edge, ragged=ragged, main=main)
+
+
+def fir_vs_iir(x_fir, x_iir):
+    """tests/test_fir_parity.py's gates on the runner's X: correlation over
+    every feature, and each band's mean total persistence (H0 and H1) within
+    0.08 relative in delta and 0.02 in the other bands."""
+    import numpy as np
+
+    from tda_eeg_audio_tpu_torch.models.classify import feature_names_220
+
+    names = feature_names_220()
+    r = float(np.corrcoef(x_fir.ravel(), x_iir.ravel())[0, 1])
+    rel = {}
+    for band in BANDS:
+        for dim in ("h0", "h1"):
+            col = names.index(f"{band}_{dim}_total_persistence_mean")
+            a, b = float(x_fir[:, col].mean()), float(x_iir[:, col].mean())
+            rel[f"{band}_{dim}"] = abs(a - b) / (abs(b) + 1e-9)
+    ok = r > 0.995 and all(v < (0.08 if k.startswith("delta") else 0.02)
+                           for k, v in rel.items())
+    return dict(r=r, total_persistence_rel=rel, ok=ok)
+
+
+def stats_deltas():
+    """The (18, 5) subject deltas of phase 11's sharded statistics step, from
+    a seed (one band with no effect, four with growing ones); the CPU tests
+    of the step (tests/torch_distributed_worker.py) import them from here."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return (rng.standard_normal((18, 5)) * 0.1
+            + np.array([0.0, 0.01, 0.03, 0.06, 0.1])).astype(np.float32)
+
+
+def rank_worker(argv) -> int:
+    """One rank of phase 11: `cli.main(argv)` (the command line's entry
+    point), then `sharded_stats_step` over the same process group on this
+    rank's rows of `stats_deltas()`; prints one JSON line last."""
+    from tda_eeg_audio_tpu_torch import cli
+    from tda_eeg_audio_tpu_torch.parallel.sharding import sharded_stats_step
+    from tda_eeg_audio_tpu_torch.runtime import process_rank_world, process_shard
+
+    rc = cli.main(argv)
+    rank, world = process_rank_world()
+    d = stats_deltas()
+    lo, hi = process_shard(len(d))
+    res = sharded_stats_step(device="cuda")(d[lo:hi])
+    print(json.dumps(dict(rc=rc, rank=rank, world=world, rows=[lo, hi],
+                          stats=res.cpu().tolist())), flush=True)
+    return rc
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def distributed_phase(timeout_s: float = 300.0):
+    """Phase 11: two ranks of `features` on the card over gloo, partials +
+    merge against one single-process run, and the sharded statistics step
+    in the same ranks against this process's.  Returns (report, problems)."""
+    import numpy as np
+    import torch
+
+    from tda_eeg_audio_tpu_torch import cli
+    from tda_eeg_audio_tpu_torch.ops.stats import bh_fdr, wilcoxon
+
+    problems, report = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        td = Path(tmp)
+        data = td / "data"
+        index = write_mat_dataset(data)
+        common = ["features", "--data", str(data), "--batch", "4"]
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase11-rank",
+             *common, "--results", str(td / "part"), "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                out, err = proc.communicate(timeout=timeout_s)
+                outs.append((proc.returncode, out, err))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        report["ranks_seconds"] = time.perf_counter() - t0
+        ranks = []
+        for i, (rc, out, err) in enumerate(outs):
+            lines = out.strip().splitlines()
+            if rc != 0 or not lines:
+                problems.append(f"rank {i}: rc {rc}: {err[-2000:]}")
+                continue
+            ranks.append(json.loads(lines[-1]))
+            report[f"rank_{i}_said"] = [ln for ln in lines[:-1]
+                                        if ln.startswith(("distributed", "process shard",
+                                                          "partial"))]
+        if problems:
+            return report, problems
+        with contextlib.redirect_stdout(io.StringIO()):
+            merge_rc = cli.main(["features", "--results", str(td / "part"),
+                                 "--merge-partials"])
+            t1 = time.perf_counter()
+            one_rc = cli.main([*common, "--results", str(td / "one")])
+            report["one_process_seconds"] = time.perf_counter() - t1
+        if merge_rc or one_rc:
+            problems.append(f"merge rc {merge_rc}, one-shot rc {one_rc}")
+        for f in ("X.npy", "y.npy", "subjects.npy"):
+            a = np.load(td / "part" / f, allow_pickle=True)
+            b = np.load(td / "one" / f, allow_pickle=True)
+            if a.shape != b.shape or not np.array_equal(a, b):
+                problems.append(f"{f}: partials + merge differ from one process")
+        report["rows"] = int(np.load(td / "one" / "X.npy").shape[0])
+        if report["rows"] != len(index):
+            problems.append(f"{report['rows']} rows for {len(index)} recordings")
+        parts = sorted(q.name for q in (td / "part" / "partials").iterdir())
+        report["partials"] = parts
+        if parts != ["batch_0_4.npz", "batch_4_8.npz"]:
+            problems.append(f"partials {parts}")
+    # the sharded statistics in the two ranks against this process's
+    d = torch.as_tensor(stats_deltas(), device="cuda").T
+    _, p = wilcoxon(d, torch.ones_like(d, dtype=torch.bool))
+    _, p_adj = bh_fdr(p[None, :], 0.05)
+    want = torch.stack([p, p_adj[0]], dim=-1).cpu().tolist()
+    report["stats"] = want
+    report["ranks"] = [dict(rank=r["rank"], world=r["world"], rows=r["rows"])
+                       for r in ranks]
+    if [r["stats"] for r in ranks] != [want, want]:
+        problems.append(f"sharded stats {[r['stats'] for r in ranks]} != {want}")
+    if sorted(r["rank"] for r in ranks) != [0, 1] or any(r["world"] != 2 for r in ranks):
+        problems.append(f"ranks {report['ranks']}")
+    return report, problems
+
+
 def main() -> int:
     import torch
 
@@ -773,7 +1045,9 @@ def main() -> int:
 
     from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
     from tda_eeg_audio_tpu_torch.io.synthetic import SynthDataset, load_batch
+    from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
+    from tda_eeg_audio_tpu_torch.ops import iir_cuda as IC
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     t_start = time.perf_counter()
@@ -783,13 +1057,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ── phase 2: build ──
+    # ── phase 2: build every kernel, one nvcc each, side by side ──
     t0 = time.perf_counter()
-    HC.build_all((False, True), verbose=True)
+    _, nvcc_s = cuda_build.build_libraries(
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (IC.SRC, ())], verbose=True)
     HC._load()
+    IC._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{HC.build_seconds if HC.build_seconds is not None else 'cached'})",
-          flush=True)
+          f"{nvcc_s if nvcc_s is not None else 'cached'})", flush=True)
 
     cfg = DEFAULT_CONFIG
     # 8 subjects × {slow, fast} utterance 1: 16 recordings; each one's
@@ -914,7 +1189,7 @@ def main() -> int:
     cut = 10_937
     store.audio[0, store.ns_a[0] - cut:store.ns_a[0]] = 0.0
     store.ns_a[0] -= cut
-    report, problems = runner_phase(store, cfg)
+    report, problems, x_fir = runner_phase(store, cfg)
     runner_launches = report["launches_total"]
     print(f"runner ({report['recordings']} recordings, store {store_gb:.2f} GB "
           f"generated on the card in {ingest_ms / 1e3:.1f} s): "
@@ -931,7 +1206,6 @@ def main() -> int:
     if bad:
         print(f"FAIL: bank and in-call paths disagree on {bad}", file=sys.stderr)
         return 1
-    del store
 
     # ── phase 8: exact redo of overflowed windows on the card ──
     redo = overflow_redo_check(d47, cfg.max_edge_length)
@@ -959,6 +1233,49 @@ def main() -> int:
         print(f"FAIL: cli: {problems}", file=sys.stderr)
         return 1
 
+    # ── phase 10: the exact IIR bank, kernel vs plain, then the runner ──
+    clock_hz = max_sm_clock_hz()
+    iir = iir_kernel_check(dev, store.eeg[:B_REC], store.ns_e[:B_REC], clock_hz)
+    for shape in ("ragged", "main"):
+        r = iir[shape]
+        print(f"sosfiltfilt vs plain {shape} ({r['chains']} chains, "
+              f"T_pad {store.eeg.shape[-1]}, edge {iir['edge']}): "
+              f"max_abs_err {r['max_abs_err']:.3g}, max_rel_err (of each band's "
+              f"max|ref|) {r['max_rel_err']:.3g}, zeros beyond n "
+              f"{r['zeros_beyond_n']}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, bound bytes {r['t_bytes']:.4f} ms / "
+              f"operations {r['t_ops']:.4f} ms, chain floor estimate "
+              f"{r['chain_estimate_ms']:.4f} ms (assumed {FP64_FMA_CYCLES} cycles "
+              f"per dependent FP64 FMA at the max SM clock, not measured)"
+              + (f", scipy max_rel_err {r['scipy_max_rel_err']:.3g}"
+                 if "scipy_max_rel_err" in r else
+                 f", one series (5 chains) {r['one_series_ms']:.4f} ms"), flush=True)
+    bad_iir = [k for k in ("ragged", "main") if iir[k]["max_rel_err"] > 1e-6
+               or not iir[k]["zeros_beyond_n"]]
+    if bad_iir or iir["ragged"]["scipy_max_rel_err"] > 1e-5:
+        print(f"FAIL: sosfiltfilt kernel vs plain / scipy: {bad_iir}, scipy "
+              f"{iir['ragged']['scipy_max_rel_err']}", file=sys.stderr)
+        return 1
+    cfg_iir = dataclasses.replace(cfg, filter_impl="iir_scan")
+    iir_report, problems, x_iir = runner_phase(store, cfg_iir)
+    print("runner iir_scan: " + json.dumps(iir_report), flush=True)
+    parity = fir_vs_iir(x_fir, x_iir)
+    print("FIR vs IIR X (tests/test_fir_parity.py gates: r > 0.995, mean total "
+          "persistence within 0.08 delta / 0.02 other bands): "
+          + json.dumps(parity), flush=True)
+    if problems or not parity["ok"]:
+        print(f"FAIL: iir_scan runner: {problems}, parity ok {parity['ok']}",
+              file=sys.stderr)
+        return 1
+    del store
+
+    # ── phase 11: two processes on the card ──
+    dist_report, problems = distributed_phase()
+    print("two processes: " + json.dumps(dist_report), flush=True)
+    if problems:
+        print(f"FAIL: two processes: {problems}", file=sys.stderr)
+        return 1
+
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
     t_bytes = r47["t_bytes"] + r124["t_bytes"]
@@ -967,9 +1284,11 @@ def main() -> int:
         name="h1_reduce", route="cuda",
         source="tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu",
         replaces="tda_eeg_audio_tpu/ops/homology_pallas.py:190",
-        launches=total + runner_launches + cli_launches,
+        launches=total + runner_launches + cli_launches
+        + iir_report["launches_total"],
         launches_by_path=dict(one_batch=launches, runner=report["launches"],
-                              cli={k: r["launches"] for k, r in cli_report.items()}),
+                              cli={k: r["launches"] for k, r in cli_report.items()},
+                              runner_iir_scan=iir_report["launches"]),
         max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
         ms=r47["ms"] + r124["ms"], plain_ms=r47["plain_ms"] + r124["plain_ms"],
         bound_ms=max(t_bytes, t_ops),
@@ -981,7 +1300,27 @@ def main() -> int:
             bound_ms=max(r["t_bytes"], r["t_ops"]), word_ops=r["word_ops"],
             steps_mean=r["steps_mean"], steps_max=r["steps_max"])
               for r in (r47, r124)},
-        held_against_plain=not (r47["mismatched"] or r124["mismatched"]))]
+        held_against_plain=not (r47["mismatched"] or r124["mismatched"])),
+        dict(
+        name="sosfiltfilt", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/sosfiltfilt.cu",
+        replaces="tda_eeg_audio_tpu/ops/signal.py:401 _biquad_scan "
+                 "(XLA associative scan, not Pallas)",
+        launches=iir_report["sosfiltfilt_launches_total"],
+        launches_by_path=dict(runner_iir_scan=iir_report["sosfiltfilt_launches"]),
+        max_abs_err=max(iir["ragged"]["max_abs_err"], iir["main"]["max_abs_err"]),
+        ms=iir["main"]["ms"], plain_ms=iir["main"]["plain_ms"],
+        bound_ms=max(iir["main"]["t_bytes"], iir["main"]["t_ops"]),
+        bound_by="bytes" if iir["main"]["t_bytes"] >= iir["main"]["t_ops"]
+        else "operations", library_ms=None,
+        by_shape={k: dict(chains=iir[k]["chains"], ms=iir[k]["ms"],
+                          plain_ms=iir[k]["plain_ms"],
+                          bound_ms=max(iir[k]["t_bytes"], iir[k]["t_ops"]),
+                          max_rel_err=iir[k]["max_rel_err"])
+                  for k in ("ragged", "main")},
+        one_series_ms=iir["main"]["one_series_ms"],
+        scipy_max_rel_err=iir["ragged"]["scipy_max_rel_err"],
+        held_against_plain=True)]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
@@ -992,4 +1331,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase11-rank"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

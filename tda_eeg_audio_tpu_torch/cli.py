@@ -22,7 +22,12 @@ Batch sharding (reference tda_eeg_classification_v2.py:54-60,608-668): the
 env vars BATCH_START / BATCH_END / WRITE_PARTIAL / MERGE_PARTIALS — or the
 equivalent flags — shard the features stage across independent invocations
 with .npz partials merged by `--merge-partials`, which builds no runner and
-touches no device.
+touches no device.  Multi-process runs automate it: with
+`--coordinator HOST:PORT --num-processes P --process-id I` (or torchrun's
+MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK), each process joins one gloo
+group, binds to its card, takes `runtime.process_shard` of the recordings
+for `features` / `study` (unless a batch range is given) and writes its
+partial; `--merge-partials` then joins them.
 """
 
 from __future__ import annotations
@@ -43,8 +48,14 @@ def _build_runner(args):
 
     from .config import DEFAULT_CONFIG, GOOD_ELECTRODES
     from .models.study import StudyRunner
-    from .runtime import resolve_device
+    from .runtime import init_distributed, resolve_device
 
+    # a no-op for one process; else joins the group and binds to a card
+    info = init_distributed(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device)
+    if info["num_processes"] > 1:
+        print(f"distributed: process {info['process_id']}/"
+              f"{info['num_processes']}")
     dev = resolve_device(args.device)
     cfg = DEFAULT_CONFIG
     if args.wasserstein:
@@ -92,6 +103,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=16,
                     help="recordings per device batch")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    # multi-process runs (torch.distributed over gloo); default to torchrun's
+    # MASTER_ADDR:MASTER_PORT / WORLD_SIZE / RANK
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 for multi-process runs")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--backend", choices=["auto", "device", "host"],
                     default=None,
                     help="homology backend (default auto: the CUDA kernel on "
@@ -182,6 +199,15 @@ def _dispatch(args, runner, out_dir: Path) -> int:
     if args.command in ("features", "study"):
         bs = args.batch_start if args.batch_start >= 0 else None
         be = args.batch_end if args.batch_end >= 0 else None
+        # multi-process: each process takes its deterministic slice and
+        # writes a partial; --merge-partials joins them afterwards — the
+        # reference's BATCH_START/BATCH_END contract, automated
+        from .runtime import process_rank_world, process_shard
+
+        if process_rank_world()[1] > 1 and bs is None and be is None:
+            bs, be = process_shard(len(runner.ds))
+            args.write_partial = True
+            print(f"process shard: recordings [{bs}, {be})")
         X, y, subjects, filenames, meta = runner.compute_feature_dataset(
             batch_start=bs, batch_end=be)
         from .models.classify import feature_names_220

@@ -46,7 +46,8 @@ class PipelineConfig:
 
     filter_order: int = 4
     # "fir": linear-phase FIR matched to the zero-phase Butterworth |H|²;
-    # "iir_scan" (exact Butterworth filtfilt) is not ported yet
+    # "iir_scan": exact Butterworth filtfilt (float64 recurrence; the CUDA
+    # kernel csrc/sosfiltfilt.cu on the card), the parity path
     filter_impl: Literal["fir", "iir_scan"] = "fir"
     fir_numtaps: int = 1537
 

@@ -63,11 +63,15 @@ def h1_diagrams_routed(dm, n_pts=None, *, n: int, thresh: float, na_max: int,
 def _banded_windows(eeg, n_samples, cfg, n_win_max):
     """Filter bank → 1 s / 75 % sliding windows.
     Returns (wins (B, 5, W, C, win), wmask (B, W))."""
-    if cfg.filter_impl != "fir":
-        raise NotImplementedError("only filter_impl='fir' is ported")
-    bank = torch.as_tensor(tsig.design_band_fir_bank(
-        cfg.fs_eeg, cfg.filter_order, cfg.fir_numtaps), device=eeg.device)
-    banded = tsig.bandpass_bank(eeg, bank)                       # (B, C, 5, T)
+    if cfg.filter_impl == "iir_scan":
+        # exact Butterworth sosfiltfilt (length-aware; the CUDA recurrence
+        # kernel for CUDA tensors)
+        banded = tsig.bandpass_bank_iir_scan(eeg, n_samples[:, None],
+                                             cfg.fs_eeg, cfg.filter_order)
+    else:
+        bank = torch.as_tensor(tsig.design_band_fir_bank(
+            cfg.fs_eeg, cfg.filter_order, cfg.fir_numtaps), device=eeg.device)
+        banded = tsig.bandpass_bank(eeg, bank)                   # (B, C, 5, T)
     win, step = cfg.win_samples, cfg.step_samples
     wins = tsig.sliding_windows(banded, n_win_max, win, step)    # (B, C, 5, W, win)
     wins = wins.permute(0, 2, 3, 1, 4)                           # (B, 5, W, C, win)

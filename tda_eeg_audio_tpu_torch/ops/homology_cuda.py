@@ -24,35 +24,30 @@ for a tensor on the CPU, and launches the kernel (or raises) for a CUDA
 tensor — there is no fallback.
 
 The kernel is compiled by `nvcc` at first use from the source in the
-checkout into `build/torch_kernels/` and bound with ctypes.  A second,
-instrumented build of the same source (`-DH1_PROFILE`, a library of its own)
-serves `reduce_cuda_profiled` only; no entry point of the port loads it.
+checkout into `build/torch_kernels/` (`cuda_build`) and bound with ctypes.
+A second, instrumented build of the same source (`-DH1_PROFILE`, a library
+of its own) serves `reduce_cuda_profiled` only; no entry point of the port
+loads it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .homology_h1 import (_extract_bars, _phase1, h1_diagrams_plain,
                           map_window_chunks, reduction_inputs)
 
 __all__ = ["h1_diagrams_cuda", "h1_diagrams_plain", "reduce_cuda",
-           "reduce_cuda_profiled", "build", "build_all", "kernel_shape",
+           "reduce_cuda_profiled", "build", "kernel_shape",
            "kernel_plan", "phase1_chunk", "PROFILE_SLOTS"]
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "h1_reduce.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SRC = Path(__file__).resolve().parent.parent / "csrc" / "h1_reduce.cu"
+PROFILE_FLAGS = ("-DH1_PROFILE",)
 ARENA_BYTES = 1 << 32       # stored-column arena of one launch, at most
 PHASE1_BYTES = 1 << 34      # phase 1's transient tensors of one chunk, at most
 SMEM_MAX = 232_448          # dynamic shared memory a block can have (sm_90)
@@ -68,7 +63,6 @@ PROFILE_SLOTS = ("setup", "pivot", "pivot_barrier", "claim", "cobd_xor",
 PROFILE_TICKS = PROFILE_SLOTS[:8] + PROFILE_SLOTS[16:]
 
 _libs = {}
-build_seconds = None        # wall time of the last nvcc build (None: cached)
 
 
 def _up16(x: int) -> int:
@@ -123,54 +117,10 @@ def phase1_chunk(n: int) -> int:
     return max(1, PHASE1_BYTES // (8 * m * n))
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernel is built from "
-                           f"{_SRC} on a machine with the CUDA toolkit")
-    return path
-
-
-def _start_build(profile: bool):
-    """(.so path, running nvcc or None if the library is already built)."""
-    flags = NVCC_FLAGS + (["-DH1_PROFILE"] if profile else [])
-    tag = hashlib.sha1(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libh1_reduce_{tag}.so"
-    if so.exists():
-        return so, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    return so, (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True), tmp)
-
-
-def _finish_build(so: Path, started, verbose: bool) -> Path:
-    if started is not None:
-        proc, tmp = started
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
-        os.replace(tmp, so)
-        if verbose:
-            print(err.strip())
-    return so
-
-
 def build(profile: bool = False, verbose: bool = False) -> Path:
     """Compile the kernel (once per source content) and return the .so."""
-    return build_all((profile,), verbose)[0]
-
-
-def build_all(profiles=(False, True), verbose: bool = False):
-    """Compile the given builds side by side (one nvcc each); their .so's."""
-    global build_seconds
-    t0 = time.perf_counter()
-    started = [_start_build(p) for p in profiles]
-    sos = [_finish_build(so, st, verbose) for so, st in started]
-    if any(st is not None for _, st in started):
-        build_seconds = time.perf_counter() - t0
-    return sos
+    flags = PROFILE_FLAGS if profile else ()
+    return cuda_build.build_libraries([(SRC, flags)], verbose)[0][0]
 
 
 def _load(profile: bool = False):

@@ -1,10 +1,10 @@
 """Signal-processing ops of the study slice (counterpart of the reference's
 `ops/signal.py`): host-side numpy/scipy filter design, and batched tensor
 ops — FFT FIR bank, sliding windows, FIR Hilbert envelope, block-Toeplitz
-polyphase resample, autocorrelation τ, Takens embedding, and the Welch
-power spectrum of the EDA stage.
-
-The exact IIR-scan filters are not ported yet.
+polyphase resample, autocorrelation τ, Takens embedding, the Welch power
+spectrum of the EDA stage, and the exact Butterworth `sosfiltfilt` of
+`filter_impl="iir_scan"` (a float64 recurrence: a Python loop over time
+here, the CUDA kernel of `iir_cuda` for CUDA tensors).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FREQ_BANDS
+from . import iir_cuda
 
 # ─────────────────────────────────────────────────────────────────────────────
 # Host-side filter design (numpy/scipy; identical arrays to the reference)
@@ -323,3 +324,188 @@ def welch_psd(x: torch.Tensor, fs: float = 250.0, nperseg: int = 256,
     smask[..., 0] |= ~smask.any(dim=-1)
     w = smask[..., None].to(Pxx.dtype)
     return freqs, (Pxx * w).sum(dim=-2) / w.sum(dim=-2).clamp(min=1.0)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Exact zero-phase IIR path (config.filter_impl == "iir_scan")
+# ─────────────────────────────────────────────────────────────────────────────
+#
+# The reference's Butterworth filtfilt, with the JAX package's names and its
+# padded-batch semantics.  The JAX package runs every biquad as a log-depth
+# associative scan over 2×2 affine pairs in float32; the port runs the
+# recurrence itself, sample after sample, with float64 state (scipy's direct
+# form II transposed): closer to scipy, and on the card one thread per series
+# and band (`csrc/sosfiltfilt.cu`).  The plain version below is that
+# recurrence as a Python loop over time, vectorised over every series; it is
+# the specification, serves CPU tensors, and is what the kernel is held to.
+
+
+@functools.lru_cache(maxsize=None)
+def design_butter_sos(low: float, high: float, fs: int, order: int = 4,
+                      btype: str = "band"):
+    """Butterworth SOS (S, 6) + per-section initial conditions (S, 2), float64
+    (scipy semantics: notebooks/1_preprocesamiento.ipynb cell 1
+    design_bandpass_filter; scripts/utils.py:56-74)."""
+    from scipy import signal as sps
+
+    nyq = fs / 2.0
+    if btype == "band":
+        lo = max(low / nyq, 0.001)
+        hi = min(high / nyq, 0.999)
+        sos = sps.butter(order, [lo, hi], btype="band", output="sos")
+    else:
+        sos = sps.butter(order, low / nyq, btype="low", output="sos")
+    zi = sps.sosfilt_zi(sos)
+    return sos.astype(np.float64), zi.astype(np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def design_butter_band_bank(fs: int, order: int = 4):
+    """Stacked Butterworth SOS bank of the 5 study bands → (5, S, 6), (5, S, 2)."""
+    soss, zis = [], []
+    for lo, hi in FREQ_BANDS.values():
+        sos, zi = design_butter_sos(lo, hi, fs, order, "band")
+        soss.append(sos)
+        zis.append(zi)
+    return np.stack(soss), np.stack(zis)
+
+
+def sos_edge(sos) -> int:
+    """scipy's default odd-extension length of `sosfiltfilt`: 3·ntaps, with
+    ntaps = 2·S + 1 less the smaller of the counts of sections whose b2 or
+    a2 is 0; computed on the host from the design values.  sos: (S, 6), or
+    a bank (nb, S, 6) whose bands must share one edge."""
+    sos = np.asarray(sos).reshape(-1, *np.shape(sos)[-2:])
+    edges = set()
+    for band in sos:
+        ntaps = 2 * band.shape[0] + 1
+        ntaps -= min(int((band[:, 2] == 0).sum()), int((band[:, 5] == 0).sum()))
+        edges.add(3 * ntaps)
+    if len(edges) != 1:
+        raise ValueError(f"the bank's bands need different edges {sorted(edges)}")
+    return edges.pop()
+
+
+def _cascade(sig: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
+    """Forward SOS cascade along the last axis in float64, sample after
+    sample: scipy's direct form II transposed per section, with z1's sum
+    taken as (b1·u + z2) − a1·y, the order of the kernel.  sig (..., L)
+    float64; sos (..., S, 6) and zi (..., S, 2), broadcastable against sig's
+    leading axes.  Every section starts from zi[s] · sig[..., 0], the first
+    sample of the cascade's INPUT (scipy's sosfiltfilt scales all sections
+    by it; it is not updated per section)."""
+    x0 = sig[..., 0]
+    S = sos.shape[-2]
+    coef = [tuple(sos[..., s, k] for k in (0, 1, 2, 4, 5)) for s in range(S)]
+    z1 = [zi[..., s, 0] * x0 for s in range(S)]
+    z2 = [zi[..., s, 1] * x0 for s in range(S)]
+    out = torch.empty(torch.broadcast_shapes(sig.shape, sos.shape[:-2] + (1,)),
+                      dtype=torch.float64, device=sig.device)
+    for j in range(sig.shape[-1]):
+        u = sig[..., j]
+        for s, (b0, b1, b2, a1, a2) in enumerate(coef):
+            y = b0 * u + z1[s]
+            z1[s] = (b1 * u + z2[s]) - a1 * y
+            z2[s] = b2 * u - a2 * y
+            u = y
+        out[..., j] = u
+    return out
+
+
+def _sos_tensors(sos, zi, device):
+    return (torch.as_tensor(np.asarray(sos), dtype=torch.float64, device=device),
+            torch.as_tensor(np.asarray(zi), dtype=torch.float64, device=device))
+
+
+def sosfiltfilt_scan(x: torch.Tensor, sos, zi) -> torch.Tensor:
+    """scipy.signal.sosfiltfilt over the whole last axis (odd extension of
+    sos_edge(sos) samples, zi scaling), the unmasked form; float64 inside,
+    x's dtype out."""
+    edge = sos_edge(sos)
+    sos_t, zi_t = _sos_tensors(sos, zi, x.device)
+    y = _cascade(_odd_ext(x.to(torch.float64), edge), sos_t, zi_t).flip(-1)
+    y = _cascade(y, sos_t, zi_t).flip(-1)
+    return y[..., edge:-edge].to(x.dtype)
+
+
+def bandpass_iir_scan(x: torch.Tensor, fs: int, low: float, high: float,
+                      order: int = 4) -> torch.Tensor:
+    """Exact reference band-pass: Butterworth sosfiltfilt.  Pass-through when
+    the clamped band is empty (reference utils.py:71-72)."""
+    nyq = fs / 2.0
+    if max(low / nyq, 0.001) >= min(high / nyq, 0.999):
+        return x
+    sos, zi = design_butter_sos(low, high, fs, order, "band")
+    return sosfiltfilt_scan(x, sos, zi)
+
+
+def _filtfilt_masked(x: torch.Tensor, n, sos_t: torch.Tensor, zi_t: torch.Tensor,
+                     edge: int) -> torch.Tensor:
+    """The length-aware filtfilt of `sosfiltfilt_scan_masked`, on coefficient
+    tensors broadcastable against x's leading axes."""
+    T = x.shape[-1]
+    Text = T + 2 * edge
+    dev = x.device
+    xd = x.to(torch.float64)
+    n = torch.as_tensor(n, device=dev).long().expand(x.shape[:-1]).clamp(0, T)[..., None]
+    j = torch.arange(Text, device=dev)
+    x_last = xd.gather(-1, (n - 1).clamp(min=0))
+    x_first = xd[..., :1]
+    in_left = j < edge
+    in_mid = (j >= edge) & (j < edge + n)
+    src = torch.where(in_left, edge - j,
+                      torch.where(in_mid, j - edge, n - 2 - (j - edge - n)))
+    vals = xd.gather(-1, src.clamp(0, T - 1))
+    ext = torch.where(in_mid, vals,
+                      torch.where(in_left, 2.0 * x_first - vals, 2.0 * x_last - vals))
+    L = n + 2 * edge                                   # valid extension length
+    ext = torch.where(j < L, ext, 0.0)
+    y1 = _cascade(ext, sos_t, zi_t)
+    # length-aware reversal: rev[j] = y1[L-1-j] for j < L, else 0
+    rev = torch.where(j < L, y1.gather(-1, (L - 1 - j).clamp(0, Text - 1)
+                                       .expand(y1.shape)), 0.0)
+    y2 = _cascade(rev, sos_t, zi_t)
+    # y2 is reversed: out[t] = y2[n + edge - 1 - t] for t < n
+    t = torch.arange(T, device=dev)
+    out = y2.gather(-1, (n + edge - 1 - t).clamp(0, Text - 1).expand(
+        *y2.shape[:-1], T))
+    return torch.where(t < n, out, 0.0).to(x.dtype)
+
+
+def sosfiltfilt_scan_masked(x: torch.Tensor, n, sos, zi) -> torch.Tensor:
+    """Exact `scipy.signal.sosfiltfilt` on length-padded batches.
+
+    x: (..., T) with valid data in [0, n) per leading element (n
+    broadcastable to x.shape[:-1], clamped to [0, T]).  Returns the filtered
+    signal, exact on [0, n) and zero beyond.  The odd extension (its source
+    index clipped to [0, T − 1], as the JAX package does, which matters when
+    n ≤ edge), the reversal and the final crop follow each series' own
+    length, so the padded tail never reaches the backward pass.  Plain
+    PyTorch on any device (float64 recurrence, a Python loop over time)."""
+    sos_t, zi_t = _sos_tensors(sos, zi, x.device)
+    return _filtfilt_masked(x, n, sos_t, zi_t, sos_edge(sos))
+
+
+def bandpass_bank_iir_plain(x: torch.Tensor, n, sos_bank, zi_bank) -> torch.Tensor:
+    """The plain version of the bank: x (..., T) valid to n → (..., nb, T),
+    band b filtered by sos_bank[b] (nb, S, 6) / zi_bank[b] (nb, S, 2); all
+    bands in one vectorised recurrence."""
+    sos_t, zi_t = _sos_tensors(sos_bank, zi_bank, x.device)
+    nb = sos_t.shape[0]
+    n = torch.as_tensor(n, device=x.device).expand(x.shape[:-1])[..., None]
+    xb = x[..., None, :].expand(*x.shape[:-1], nb, x.shape[-1])
+    return _filtfilt_masked(xb, n, sos_t, zi_t, sos_edge(sos_bank))
+
+
+def bandpass_bank_iir_scan(x: torch.Tensor, n, fs: int, order: int = 4) -> torch.Tensor:
+    """Exact 5-band Butterworth filtfilt bank on padded batches: x (..., T)
+    valid to n samples → (..., 5, T), zero beyond n.  The exact counterpart
+    of `bandpass_bank` (reference notebooks cell 1 `apply_bandpass_filter`
+    per band); `filter_impl="iir_scan"` selects it.  A CPU tensor takes the
+    plain recurrence; a CUDA tensor launches the kernel (`iir_cuda`) or
+    raises — there is no fallback."""
+    sos_bank, zi_bank = design_butter_band_bank(fs, order)
+    if x.device.type == "cpu":
+        return bandpass_bank_iir_plain(x, n, sos_bank, zi_bank)
+    return iir_cuda.sosfiltfilt_bank_cuda(x, n, sos_bank, zi_bank,
+                                          sos_edge(sos_bank))

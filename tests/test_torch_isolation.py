@@ -25,7 +25,9 @@ def test_imports_load_no_jax_and_no_reference_package():
     for name in ("ops.homology_cuda", "models.study", "models.homology_exec",
                  "models.classify", "io.device_store", "native.engine",
                  "utils.validation", "utils.logging", "cli", "io.matfiles",
-                 "models.eda", "models.figures", "utils.profiling"):
+                 "models.eda", "models.figures", "utils.profiling",
+                 "ops.iir_cuda", "ops.cuda_build", "ops.homology",
+                 "parallel.sharding"):
         assert f"tda_eeg_audio_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -142,6 +142,6 @@ def test_profiled_launch_refuses_cpu_and_stays_out_of_entry_points():
     # only homology_cuda itself names the instrumented build
     pkg = Path(thc.__file__).parent.parent
     users = [p for p in pkg.rglob("*.py") if p.name != "homology_cuda.py"
-             and re.search(r"reduce_cuda_profiled|H1_PROFILE|build_all",
+             and re.search(r"reduce_cuda_profiled|H1_PROFILE|PROFILE_FLAGS",
                            p.read_text())]
     assert users == []

@@ -63,6 +63,7 @@ def main() -> int:
                             stage_inputs, wall_ms)
     from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
     from tda_eeg_audio_tpu_torch.io.synthetic import SynthDataset, load_batch
+    from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
 
@@ -74,8 +75,9 @@ def main() -> int:
         out.append(rec)
         print(json.dumps(rec), flush=True)
 
-    HC.build_all((False, True), verbose=True)
-    emit(build_s=HC.build_seconds)
+    _, build_s = cuda_build.build_libraries(
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS)], verbose=True)
+    emit(build_s=build_s)
 
     cfg = DEFAULT_CONFIG
     ds = SynthDataset(n_subjects=8, n_per_subject=1, cfg=cfg)
