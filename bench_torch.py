@@ -58,6 +58,7 @@ def main(argv=None) -> int:
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
     from tda_eeg_audio_tpu_torch.models.study import StudyRunner
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
 
     card = card_line()
     n_subj, per = (3, 2) if args.smoke else (45, 16)
@@ -68,6 +69,7 @@ def main(argv=None) -> int:
         return time.perf_counter()
 
     HC.build()                                  # nvcc, before any clock
+    WC.build()
     t0 = sync_time()
     ds = build_synthetic_device(n_subjects=n_subj, n_per_subject=per,
                                 seed=args.seed)
@@ -82,6 +84,7 @@ def main(argv=None) -> int:
                                  eeg_bank=not args.no_bank, results_dir=td,
                                  verbose=False)
             launches0, redone0 = HC.h1_diagrams_cuda.launches, run_tda.redone
+            sk0 = WC.sinkhorn_tiered_cuda.launches
             t0 = sync_time()
             X, y, subjects, filenames, meta = runner.compute_feature_dataset()
             t1 = sync_time()
@@ -94,6 +97,7 @@ def main(argv=None) -> int:
                 control_s=t3 - t2, bank_batches=runner._bank_served,
                 bank_fallback=runner._bank_fallback,
                 kernel_launches=HC.h1_diagrams_cuda.launches - launches0,
+                sinkhorn_launches=WC.sinkhorn_tiered_cuda.launches - sk0,
                 redone=dict(runner.redo_counts,
                             windows=run_tda.redone - redone0)))
             print(f"[bench] rep {rep}: " + json.dumps(runs[-1]), file=sys.stderr,

@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels — the H1 reduction, its instrumented twin and
-     the sosfiltfilt recurrence (three nvcc side by side, sm_90a) — from the
-     sources in the checkout;
+  2. build the CUDA kernels — the H1 reduction, its instrumented twin, the
+     sosfiltfilt recurrence and the tiered Sinkhorn (four nvcc side by side,
+     sm_90a) — from the sources in the checkout;
   3. hold the kernel against its plain PyTorch version on the card, at the
      shapes of the main path: the features stage's n = 47 EEG windows and
      the comparison's n = 124 Takens clouds of one 16-recording batch —
@@ -21,7 +21,18 @@ Phases, each fatal on failure:
      eeg_feature_program → audio_h1_program (mismatch audio) →
      comparison_program, with the launch count zeroed just before and read
      just after, the comparison stage's parts timed by its own spans, and
-     check shapes, finiteness and launches;
+     check shapes, finiteness and launches (the H1 kernel's by stage, the
+     tiered Sinkhorn's per batch);
+ 4b. the tiered Sinkhorn kernel against its plain version on the card, on
+     the 2,400 pairs phase 4's comparison hands it (kept in the warm-up run)
+     and on synthetic pairs of every width class (empty sides, 16 | 17 ...
+     96 bars), within rtol 2e-4 of each plain value and within rtol 1e-6
+     of a float64 run of the ladder; the kernel path once under
+     `torch.cuda.set_sync_debug_mode("error")`; timed (CUDA events), the
+     plain version timed, pairs per width class and the bound (at each
+     pair's own width) printed, and a rounding line per set (the kernel and
+     the plain version against the float64 run, the plain version against
+     itself on its pairs reversed);
   5. hold the CUDA run of a small batch against the CPU run (plain path);
   6. the study runner at full width: 96 synthetic recordings (6 subjects ×
      {slow, fast} × 8) generated into a device-resident store, then
@@ -100,6 +111,18 @@ FP64_FMA_CYCLES = 8
 # many INT32 lanes as FP32 lanes, so 67e12 / 4 one-op-per-clock int32 ops/s
 INT32_OPS_PER_S = 67e12 / 4
 PLAIN_STORED_BYTES = 1 << 34    # the plain reduction's dense bool columns per call
+# FP32 rate of an H100 SXM outside the tensor cores, and its special-function
+# units' rate for expf: 16 results per SM and clock on 132 SMs (NVIDIA's data
+# sheet and Hopper white paper)
+FP32_FLOPS_PER_S = 67e12
+SFU_PER_SM_CLOCK = 16
+N_SMS = 132
+SINKHORN_RTOL = 2e-4    # the tiered Sinkhorn's parity tolerance (tests/test_torch_ops.py)
+# the tiered Sinkhorn kernel against a float64 run of the same ladder: its
+# duals are float64, so only its float32 kernel matrix, matvecs and
+# reciprocals round, a few float32 ULPs of <P, D>; the float32 plain
+# version, whose duals round too, sits up to ~2e-4 away (phase 4b prints both)
+SINKHORN_F64_RTOL = 1e-6
 # the stage of the main path that runs the kernel at one shape only
 STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
 BANDS = ("delta", "theta", "alpha", "beta", "gamma")
@@ -346,13 +369,16 @@ def main_path(batch, mis, cfg, dev):
 
     from tda_eeg_audio_tpu_torch.models import programs as P
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+    from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
 
-    ms, launches = {}, {}
+    ms, launches, sk_launches = {}, {}, {}
 
     def stage(name, fn):
         before = h1_diagrams_cuda.launches
+        before_sk = sinkhorn_tiered_cuda.launches
         out, ms[name] = wall_ms(fn)
         launches[name] = h1_diagrams_cuda.launches - before
+        sk_launches[name] = sinkhorn_tiered_cuda.launches - before_sk
         return out
 
     agg, diag, ovf = stage("features", lambda: P.eeg_feature_program(
@@ -366,7 +392,7 @@ def main_path(batch, mis, cfg, dev):
         N_WIN_MAX, N_RS_MAX, K_CMP, device=dev))
     torch.cuda.synchronize()
     return dict(agg=agg, diag=diag, ovf=ovf, mo=mo, out=out, ms=ms,
-                launches=launches)
+                launches=launches, sinkhorn_launches=sk_launches)
 
 
 def float_ratio(got, ref, rtol):
@@ -447,6 +473,180 @@ def small_reference_check(dev, window_sec: float = 1.0, seed: int = 0):
     return bad, ratio, float((dist[0] - dist[1]).abs().max())
 
 
+def capture_sinkhorn_pairs(fn):
+    """Run fn() with the comparison's tiered-Sinkhorn router wrapped so that
+    the pairs it is given are kept (copies); returns the pairs of its last
+    call."""
+    from tda_eeg_audio_tpu_torch.models import programs as P
+
+    route, kept = P._wass_sinkhorn_tiered, []
+
+    def keep(*args):
+        kept.append(tuple(x.clone() for x in args))
+        return route(*args)
+
+    P._wass_sinkhorn_tiered = keep
+    try:
+        fn()
+    finally:
+        P._wass_sinkhorn_tiered = route
+    return kept[-1]
+
+
+def sinkhorn_class_pairs(dev, per_class: int = 8, seed: int = 5):
+    """Pairs that reach every width class of the kernel: bar counts per side
+    at each class's edges (0 = the [[0, 0]] sentinel; 16 | 17, 40 | 41,
+    80 | 81; 90 and 96 at the full width), study-shaped bars (births
+    0.3–1.5, exponential persistence of mean 0.15) scattered over 96-slot
+    rows, made from a seed with numpy."""
+    import numpy as np
+    import torch
+
+    counts = [(0, 0), (0, 5), (5, 0), (1, 1), (16, 16), (17, 3), (3, 17),
+              (40, 40), (41, 2), (80, 80), (81, 81), (90, 90), (96, 96),
+              (96, 0)] * per_class
+    rng = np.random.default_rng(seed)
+    K = 96
+    sides = []
+    for side in (0, 1):
+        b = np.zeros((len(counts), K), np.float32)
+        d = np.zeros((len(counts), K), np.float32)
+        m = np.zeros((len(counts), K), bool)
+        for i, cc in enumerate(counts):
+            c = cc[side]
+            pos = rng.choice(K, size=c, replace=False)
+            bb = rng.uniform(0.3, 1.5, c).astype(np.float32)
+            m[i, pos] = True
+            b[i, pos] = bb
+            d[i, pos] = bb + rng.exponential(0.15, c).astype(np.float32)
+        sides += [b, d, m]
+    return tuple(torch.as_tensor(x, device=dev) for x in sides)
+
+
+def sinkhorn_bound(pairs, clock_hz, chunk: int = 128):
+    """The tiered Sinkhorn's least time on these pairs, counted at the widths
+    the function needs, each pair's own tier (S = 2 × the smallest tier that
+    holds its larger side; wider pads only add zero-cost pad↔pad matches):
+    FP32 operations (two S × S multiply-add matvecs, 4·S², per iteration)
+    over 67 TFLOP/s; expf (S² per absorption and once at the end) over the
+    SFU rate at the card's max SM clock; bytes (bars and masks read once,
+    one float written per pair) over HBM.  Also, as a reading, the operation
+    time at the widths the plain version runs (pairs sorted by bar count
+    into 128-pair chunks, each at the tier of its widest pair), and the
+    pairs per width class of both."""
+    import numpy as np
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
+
+    b1, _, m1, b2, _, m2 = pairs
+    N, K1, K2 = b1.shape[0], b1.shape[1], b2.shape[1]
+    r = torch.maximum(m1.sum(1), m2.sum(1)).cpu().numpy()
+    kernel_w = np.array([WC.pair_width(int(c)) for c in r])
+    ordered = np.sort(r)[::-1]
+    plain_w = np.empty(N, np.int64)
+    for c in range(0, N, chunk):
+        plain_w[c:c + chunk] = WC.pair_width(int(ordered[c]))
+    absorptions = WC.STEPS * -(-WC.ITERS // WC.ABSORB)
+    sfu_rate = SFU_PER_SM_CLOCK * N_SMS * clock_hz
+
+    def op_times(widths):
+        S2 = float(((2.0 * widths) ** 2).sum())
+        flops, exps = 4 * S2 * WC.STEPS * WC.ITERS, S2 * (absorptions + 1)
+        return flops, exps, flops / FP32_FLOPS_PER_S * 1e3, exps / sfu_rate * 1e3
+
+    flops, exps, t_fp32, t_sfu = op_times(kernel_w)
+    bytes_ = N * (K1 + K2) * 9 + N * 4
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    tally = lambda w: {int(k): int(v) for k, v in zip(*np.unique(w, return_counts=True))}  # noqa: E731
+    return dict(t_ops=max(t_fp32, t_sfu), t_bytes=t_bytes, flops=flops, exps=exps,
+                bytes=bytes_, t_fp32=t_fp32, t_sfu=t_sfu,
+                t_ops_at_plain_widths=max(op_times(plain_w)[2:]),
+                kernel_widths=tally(kernel_w), plain_widths=tally(plain_w))
+
+
+def sinkhorn_rounding(pairs, got, ref):
+    """On one set of pairs, the largest relative difference of the kernel's
+    result `got` and of the plain version's `ref` from a float64 run of the
+    same ladder, and of the plain version from itself on the pairs reversed
+    (other chunks, so other matvec widths).  The first is phase 4b's second
+    gate (SINKHORN_F64_RTOL); the other two are readings."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.models import programs as P
+
+    b1, d1, m1, b2, d2, m2 = pairs
+    r64 = P.wass_sinkhorn_tiered_plain(b1.double(), d1.double(), m1,
+                                       b2.double(), d2.double(), m2).cpu()
+    rev = torch.arange(b1.shape[0] - 1, -1, -1, device=b1.device)
+    r_rev = P.wass_sinkhorn_tiered_plain(*(x[rev] for x in pairs))[rev.argsort()]
+    nz = r64 != 0
+
+    def rel(x, y):
+        return float(((x.double().cpu() - y) / y).abs()[nz].max())
+
+    return dict(kernel_vs_float64=rel(got, r64), plain_vs_float64=rel(ref, r64),
+                plain_vs_reordered=rel(r_rev, ref.double().cpu()))
+
+
+def sinkhorn_kernel_check(main_pairs, dev, clock_hz):
+    """Phase 4b: the tiered Sinkhorn kernel against its plain version on the
+    card, on phase 4's pairs (`main`) and on pairs of every width class
+    (`classes`), within SINKHORN_RTOL of each plain value and within
+    SINKHORN_F64_RTOL of a float64 run of the ladder (`sinkhorn_rounding`);
+    the kernel path once under `torch.cuda.set_sync_debug_mode("error")`,
+    which raises at any host synchronisation; timings (also of each width
+    class's pairs alone) and the bound.  The launches made here are not
+    counted."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.models import programs as P
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
+
+    launches0 = WC.sinkhorn_tiered_cuda.launches
+    res = {}
+    for name, pairs in (("main", main_pairs), ("classes", sinkhorn_class_pairs(dev))):
+        before = WC.sinkhorn_tiered_cuda.launches
+        got = P._wass_sinkhorn_tiered(*pairs)
+        per_call = WC.sinkhorn_tiered_cuda.launches - before
+        ref, plain_ms = wall_ms(lambda: P.wass_sinkhorn_tiered_plain(*pairs))
+        g, r = got.double().cpu(), ref.double().cpu()
+        err = (g - r).abs()
+        nz = r != 0
+        ms = cuda_ms(lambda: P._wass_sinkhorn_tiered(*pairs), reps=20)
+        # the pairs of one width class alone (the other classes' launches
+        # then only return): what each class costs
+        counts = torch.maximum(pairs[2].sum(1), pairs[5].sum(1)).cpu()
+        widths = torch.tensor([WC.pair_width(int(c)) for c in counts])
+        ms_by_width = {}
+        for w in WC.WIDTHS:
+            idx = torch.nonzero(widths == w)[:, 0].to(pairs[0].device)
+            if idx.numel():
+                sub = [x[idx] for x in pairs]
+                ms_by_width[w] = cuda_ms(lambda: P._wass_sinkhorn_tiered(*sub), reps=10)
+        res[name] = dict(
+            pairs=int(g.numel()), launches_per_call=per_call,
+            finite=bool(torch.isfinite(g).all()),
+            within=bool((err <= SINKHORN_RTOL * r.abs()).all()),
+            max_abs_err=float(err.max()),
+            max_rel_err=float((err[nz] / r[nz].abs()).max()) if bool(nz.any()) else 0.0,
+            zeros_exact=bool((g[~nz] == 0).all()), ms=ms, plain_ms=plain_ms,
+            ms_by_width=ms_by_width, rounding=sinkhorn_rounding(pairs, got, ref),
+            **sinkhorn_bound(pairs, clock_hz))
+        res[name]["within_float64"] = \
+            res[name]["rounding"]["kernel_vs_float64"] <= SINKHORN_F64_RTOL
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        P._wass_sinkhorn_tiered(*main_pairs)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    res["no_host_sync"] = True
+    WC.sinkhorn_tiered_cuda.launches = launches0
+    return res
+
+
 def runner_phase(store, cfg, **runner_kw):
     """The whole study on the store through the runner's three entry points,
     each stage between two device synchronisations, the kernel's launch
@@ -457,23 +657,27 @@ def runner_phase(store, cfg, **runner_kw):
     from tda_eeg_audio_tpu_torch.models.study import BAND_NAMES, StudyRunner
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
     from tda_eeg_audio_tpu_torch.ops.iir_cuda import sosfiltfilt_bank_cuda
+    from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
 
     n_rec = len(store)
-    secs, launches, iir_launches = {}, {}, {}
+    secs, launches, iir_launches, sk_launches = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as td:
         runner = StudyRunner(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                              results_dir=td, verbose=False, **runner_kw)
         redone0 = run_tda.redone
         h1_diagrams_cuda.launches = 0
         sosfiltfilt_bank_cuda.launches = 0
+        sinkhorn_tiered_cuda.launches = 0
 
         def stage(name, fn):
             before = h1_diagrams_cuda.launches
             before_iir = sosfiltfilt_bank_cuda.launches
+            before_sk = sinkhorn_tiered_cuda.launches
             out, ms = wall_ms(fn)
             secs[name] = ms / 1e3
             launches[name] = h1_diagrams_cuda.launches - before
             iir_launches[name] = sosfiltfilt_bank_cuda.launches - before_iir
+            sk_launches[name] = sinkhorn_tiered_cuda.launches - before_sk
             return out
 
         X, y, subjects, filenames, meta = stage(
@@ -483,6 +687,7 @@ def runner_phase(store, cfg, **runner_kw):
         ctl = stage("control", runner.run_control)
         total = h1_diagrams_cuda.launches
         total_iir = sosfiltfilt_bank_cuda.launches
+        total_sk = sinkhorn_tiered_cuda.launches
         artifacts = sorted(p.name for p in Path(td).iterdir())
     rows = cmp_out["detailed_rows"]
     problems = []
@@ -510,6 +715,9 @@ def runner_phase(store, cfg, **runner_kw):
     # control's exact pairing); the FIR path launches it nowhere
     if (iir_launches["features"] > 0) != (cfg.filter_impl == "iir_scan"):
         problems.append(f"sosfiltfilt launches by stage {iir_launches}")
+    # the comparison pass runs the tiered Sinkhorn once per batch
+    if sk_launches["comparison"] <= 0:
+        problems.append(f"sinkhorn_tiered launches by stage {sk_launches}")
     if runner.redo_counts["control_deviants"] < 1:
         problems.append("the control's exact redo did not run")
     expect = {"eeg_audio_tda_comparison.json", "eeg_audio_tda_detailed.csv",
@@ -519,7 +727,9 @@ def runner_phase(store, cfg, **runner_kw):
     report = dict(recordings=n_rec, filter_impl=cfg.filter_impl, seconds=secs,
                   launches=launches, launches_total=total,
                   sosfiltfilt_launches=iir_launches,
-                  sosfiltfilt_launches_total=total_iir, K=meta["K"],
+                  sosfiltfilt_launches_total=total_iir,
+                  sinkhorn_launches=sk_launches,
+                  sinkhorn_launches_total=total_sk, K=meta["K"],
                   bank_served=runner._bank_served,
                   bank_fallback=runner._bank_fallback,
                   control_deviants_redone=runner.redo_counts["control_deviants"],
@@ -666,6 +876,7 @@ def cli_phase():
     from tda_eeg_audio_tpu_torch import cli
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+    from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
 
     report, problems = {}, []
     with tempfile.TemporaryDirectory() as tmp:
@@ -684,6 +895,7 @@ def cli_phase():
             out = io.StringIO()
             redone0 = run_tda.redone
             h1_diagrams_cuda.launches = 0
+            sinkhorn_tiered_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -693,6 +905,7 @@ def cli_phase():
             lines = out.getvalue().strip().splitlines()
             report[name] = dict(seconds=time.perf_counter() - t0,
                                 launches=h1_diagrams_cuda.launches,
+                                sinkhorn_launches=sinkhorn_tiered_cuda.launches,
                                 windows_redone=run_tda.redone - redone0,
                                 said=lines[-1] if lines else "")
             if rc != 0:
@@ -1048,6 +1261,7 @@ def main() -> int:
     from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import iir_cuda as IC
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     t_start = time.perf_counter()
@@ -1060,9 +1274,11 @@ def main() -> int:
     # ── phase 2: build every kernel, one nvcc each, side by side ──
     t0 = time.perf_counter()
     _, nvcc_s = cuda_build.build_libraries(
-        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (IC.SRC, ())], verbose=True)
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ())],
+        verbose=True)
     HC._load()
     IC._load()
+    WC._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{nvcc_s if nvcc_s is not None else 'cached'})", flush=True)
 
@@ -1121,12 +1337,17 @@ def main() -> int:
           flush=True)
 
     # ── phase 4: the main path, its comparison stage's parts timed ──
-    main_path(batch, mis, cfg, dev)               # warm-up (cuFFT plans etc.)
+    # warm-up (cuFFT plans etc.), keeping the pairs the comparison hands to
+    # the tiered Sinkhorn for phase 4b
+    sk_pairs = capture_sinkhorn_pairs(lambda: main_path(batch, mis, cfg, dev))
     HC.h1_diagrams_cuda.launches = 0
+    WC.sinkhorn_tiered_cuda.launches = 0
     with timed_spans() as parts:
         res = main_path(batch, mis, cfg, dev)
     total = HC.h1_diagrams_cuda.launches
+    sk_total = WC.sinkhorn_tiered_cuda.launches
     launches = res["launches"]
+    sk_launches = res["sinkhorn_launches"]
     out, mo = res["out"], res["mo"]
     expect = dict(agg=(B_REC, 5, 2, 11, 2), diag=(B_REC, 5, 8), ovf=(B_REC,))
     problems = [f"{k} shape {tuple(res[k].shape)}" for k, s in expect.items()
@@ -1144,6 +1365,9 @@ def main() -> int:
     # features runs the kernel at n = 47 only, mismatch audio at n = 124 only
     if total <= 0 or min(launches.values()) <= 0:
         problems.append(f"kernel launches by stage {launches}")
+    # one tiered Sinkhorn call per batch, in the comparison stage only
+    if sk_launches["comparison"] <= 0 or sk_total != sk_launches["comparison"]:
+        problems.append(f"sinkhorn_tiered launches by stage {sk_launches}")
     ms = res["ms"]
     n_feat_win = B_REC * 5 * K_FEAT
     n_cmp_win = B_REC * 5 * K_CMP
@@ -1158,14 +1382,48 @@ def main() -> int:
           f"comparison {int(out['overflow'].sum())}/{B_REC} recordings "
           f"(flags of the entry points; the runner redoes them, phase 6)",
           flush=True)
-    print(f"kernel launches on the main path: {total} (by stage {launches})",
-          flush=True)
+    print(f"kernel launches on the main path: h1_reduce {total} (by stage "
+          f"{launches}), sinkhorn_tiered {sk_total} per batch (by stage "
+          f"{sk_launches})", flush=True)
     print("comparison parts (wall ms, timed spans): " + json.dumps(
         {k: round(v, 2) for k, v in parts.items()}), flush=True)
     print("w_h1 band means: " + json.dumps(
         [round(float(x), 5) for x in out["w_h1"].mean(0)]), flush=True)
     if problems:
         print(f"FAIL: main path: {problems}", file=sys.stderr)
+        return 1
+
+    # ── phase 4b: the tiered Sinkhorn kernel vs plain on the card ──
+    clock_hz = max_sm_clock_hz()
+    sk = sinkhorn_kernel_check(sk_pairs, dev, clock_hz)
+    for name in ("main", "classes"):
+        r = sk[name]
+        print(f"sinkhorn_tiered vs plain {name} ({r['pairs']} pairs; by kernel "
+              f"width {r['kernel_widths']}, by the plain version's chunk width "
+              f"{r['plain_widths']}): {r['launches_per_call']} launches a call, "
+              f"max_rel_err {r['max_rel_err']:.3e} (rtol {SINKHORN_RTOL}), "
+              f"max_abs_err {r['max_abs_err']:.3e}, within {r['within']}, "
+              f"finite {r['finite']}, zeros exact {r['zeros_exact']}, kernel "
+              f"{r['ms']:.4f} ms (by width class alone "
+              f"{ {w: round(t, 4) for w, t in r['ms_by_width'].items()} }), plain "
+              f"{r['plain_ms']:.1f} ms, bound at the pairs' own widths: bytes "
+              f"{r['t_bytes']:.4f} ms / operations {r['t_ops']:.4f} ms (FP32 "
+              f"{r['t_fp32']:.4f}, expf {r['t_sfu']:.4f}); operations at the "
+              f"plain version's chunk widths {r['t_ops_at_plain_widths']:.4f} ms "
+              f"(a reading)", flush=True)
+        print(f"sinkhorn_tiered vs a float64 ladder {name} (largest relative "
+              f"difference; kernel_vs_float64 gated at rtol {SINKHORN_F64_RTOL}, "
+              f"within {r['within_float64']}): " + json.dumps(r["rounding"]), flush=True)
+    print(f"sinkhorn_tiered under set_sync_debug_mode('error'): no host "
+          f"synchronisation ({sk['no_host_sync']})", flush=True)
+    bad_sk = [k for k in ("main", "classes") if not (
+        sk[k]["within"] and sk[k]["within_float64"] and sk[k]["finite"]
+        and sk[k]["zeros_exact"])]
+    if bad_sk or sk["main"]["pairs"] != 2 * B_REC * 5 * K_CMP \
+            or len(sk["classes"]["kernel_widths"]) != len(WC.WIDTHS):
+        print(f"FAIL: sinkhorn_tiered kernel vs plain: {bad_sk}, pairs "
+              f"{sk['main']['pairs']}, classes {sk['classes']['kernel_widths']}",
+              file=sys.stderr)
         return 1
 
     # ── phase 5: small batch, card vs CPU ──
@@ -1221,6 +1479,7 @@ def main() -> int:
     print("cli (seconds, kernel launches, windows redone per command): "
           + json.dumps({k: dict(seconds=round(r["seconds"], 3),
                                 launches=r["launches"],
+                                sinkhorn_launches=r["sinkhorn_launches"],
                                 windows_redone=r["windows_redone"])
                         for k, r in cli_report.items()}), flush=True)
     print("cli said: " + json.dumps({k: r["said"] for k, r in cli_report.items()}),
@@ -1234,7 +1493,6 @@ def main() -> int:
         return 1
 
     # ── phase 10: the exact IIR bank, kernel vs plain, then the runner ──
-    clock_hz = max_sm_clock_hz()
     iir = iir_kernel_check(dev, store.eeg[:B_REC], store.ns_e[:B_REC], clock_hz)
     for shape in ("ragged", "main"):
         r = iir[shape]
@@ -1320,7 +1578,35 @@ def main() -> int:
                   for k in ("ragged", "main")},
         one_series_ms=iir["main"]["one_series_ms"],
         scipy_max_rel_err=iir["ragged"]["scipy_max_rel_err"],
-        held_against_plain=True)]
+        held_against_plain=True),
+        dict(
+        name="sinkhorn_tiered", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/sinkhorn_tiered.cu",
+        replaces="tda_eeg_audio_tpu/models/programs.py:324 _wass_chunk_tiered / "
+                 ":358 _wass_sinkhorn_tiered + tda_eeg_audio_tpu/ops/"
+                 "wasserstein.py:134 sinkhorn_cost_stab (XLA, not Pallas)",
+        launches=sk_total + report["sinkhorn_launches_total"]
+        + sum(r["sinkhorn_launches"] for r in cli_report.values())
+        + iir_report["sinkhorn_launches_total"],
+        launches_by_path=dict(
+            one_batch=sk_launches, runner=report["sinkhorn_launches"],
+            cli={k: r["sinkhorn_launches"] for k, r in cli_report.items()},
+            runner_iir_scan=iir_report["sinkhorn_launches"]),
+        max_abs_err=max(sk[k]["max_abs_err"] for k in ("main", "classes")),
+        max_rel_err=max(sk[k]["max_rel_err"] for k in ("main", "classes")),
+        ms=sk["main"]["ms"], plain_ms=sk["main"]["plain_ms"],
+        bound_ms=max(sk["main"]["t_bytes"], sk["main"]["t_ops"]),
+        bound_by="bytes" if sk["main"]["t_bytes"] >= sk["main"]["t_ops"]
+        else "operations", library_ms=None,
+        by_set={k: dict(pairs=sk[k]["pairs"], ms=sk[k]["ms"],
+                        plain_ms=sk[k]["plain_ms"], ms_by_width=sk[k]["ms_by_width"],
+                        bound_ms=max(sk[k]["t_bytes"], sk[k]["t_ops"]),
+                        kernel_widths=sk[k]["kernel_widths"],
+                        plain_widths=sk[k]["plain_widths"],
+                        max_rel_err=sk[k]["max_rel_err"],
+                        max_rel_err_vs_float64=sk[k]["rounding"]["kernel_vs_float64"])
+                for k in ("main", "classes")},
+        no_host_sync=sk["no_host_sync"], held_against_plain=True)]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

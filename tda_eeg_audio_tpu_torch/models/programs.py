@@ -8,9 +8,11 @@ Entry points (`eeg_feature_program`, `audio_h1_program`,
 numpy arrays or tensors and a ``device`` (None = CUDA; ``"cpu"`` runs the
 plain PyTorch path).  Every H1 computation goes through
 `h1_diagrams_routed`, which sends CUDA tensors to the hand-written kernel
-and CPU tensors to the plain reduction.  Overflow is flagged here; the
-runner (`models/study.py`) redoes flagged recordings exactly through
-`models/homology_exec.run_tda`.
+and CPU tensors to the plain reduction; the comparison's H1 Wasserstein
+goes through `_wass_sinkhorn_tiered`, which sends CUDA tensors to the tiered
+Sinkhorn kernel and CPU tensors to its plain version.  Overflow is flagged
+here; the runner (`models/study.py`) redoes flagged recordings exactly
+through `models/homology_exec.run_tda`.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from ..ops import signal as tsig
 from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std, diagram_features
 from ..ops.homology_cuda import h1_diagrams_cuda
-from ..ops.wasserstein import (build_cost_matrix, sinkhorn_cost_stab,
+from ..ops.wasserstein import (W_TIERS, build_cost_matrix, sinkhorn_cost_stab,
                                wasserstein_h0_exact)
+from ..ops.wasserstein_cuda import sinkhorn_tiered_cuda
 from ..runtime import resolve_device, span
 
 N_BANDS = len(FREQ_BANDS)
@@ -207,9 +210,6 @@ def _dm_diagnostics(dm):
 # Comparison helpers
 # ─────────────────────────────────────────────────────────────────────────────
 
-W_TIERS = (16, 40, 80)    # bar-count buckets of the tiered Sinkhorn
-
-
 def _compact_rows(b, d, m):
     """Move each diagram's valid bars to the front of its row (stable)."""
     ci = torch.argsort((~m).to(torch.uint8), dim=1, stable=True)
@@ -231,10 +231,21 @@ def _wass_chunk_tiered(bb1, dd1, mm1, bb2, dd2, mm2):
     return sinkhorn_cost_stab(build_cost_matrix(bb1, dd1, mm1, bb2, dd2, mm2))
 
 
-def _wass_sinkhorn_tiered(b1, d1, m1, b2, d2, m2, chunk: int = 128):
+def _wass_sinkhorn_tiered(b1, d1, m1, b2, d2, m2):
+    """Tiered Sinkhorn cost of (N, K) padded diagram pairs → (N,).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (`ops/wasserstein_cuda.py`, one launch per width class, no host
+    synchronisation) or raises — there is no fallback."""
+    if b1.device.type == "cpu":
+        return wass_sinkhorn_tiered_plain(b1, d1, m1, b2, d2, m2)
+    return sinkhorn_tiered_cuda(*(x.contiguous() for x in (b1, d1, m1, b2, d2, m2)))
+
+
+def wass_sinkhorn_tiered_plain(b1, d1, m1, b2, d2, m2, chunk: int = 128):
     """Size-sorted tiered Sinkhorn over (N, K) padded diagram pairs: pairs
     sorted by bar count, fixed-size chunks (zero-padded), each at its
-    narrowest tier, results returned in input order."""
+    narrowest tier, results returned in input order.  The kernel's
+    specification (one host synchronisation per chunk and tier)."""
     N = b1.shape[0]
     b1, d1, m1 = _compact_rows(b1, d1, m1)
     b2, d2, m2 = _compact_rows(b2, d2, m2)

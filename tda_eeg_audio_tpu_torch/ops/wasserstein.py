@@ -7,6 +7,12 @@ from __future__ import annotations
 
 import torch
 
+W_TIERS = (16, 40, 80)    # bar-count buckets of the tiered Sinkhorn
+# the ε ladder of `sinkhorn_cost_stab` (and of the CUDA kernel that repeats
+# it): ε from 3e-2 to 1e-4 of the cost scale in 6 rungs, 40 iterations a
+# rung in blocks of 8 between absorptions
+EPS_HI, EPS_LO, STEPS, ITERS, ABSORB = 3e-2, 1e-4, 6, 40, 8
+
 
 def build_cost_matrix(b1, d1, m1, b2, d2, m2, big: float = 1e9):
     """persim cost matrix for padded diagrams (B, K1) / (B, K2) →
@@ -77,21 +83,22 @@ def sinkhorn_cost(D, eps_hi: float = 3e-2, eps_lo: float = 1e-4,
     return (P * torch.where(real, D, 0.0)).sum(dim=(1, 2))
 
 
-def sinkhorn_cost_stab(D, eps_hi: float = 3e-2, eps_lo: float = 1e-4,
-                       steps: int = 6, iters: int = 40, absorb: int = 8):
+def sinkhorn_cost_stab(D, eps_hi: float = EPS_HI, eps_lo: float = EPS_LO,
+                       steps: int = STEPS, iters: int = ITERS, absorb: int = ABSORB):
     """ε-annealed entropic OT cost <P, D> on the persim cost matrix.
 
     Between dual absorptions the iterations run in the linear domain on the
     stabilized kernel K̃ = exp((−D + f + g)/ε) (one exp pass per `absorb`
     iterations); the ε ladder runs eps_hi → eps_lo relative to each pair's
-    cost scale, warm-starting the duals."""
+    cost scale, warm-starting the duals.  Runs in D's dtype (float32 on the
+    main path; float64 gives the ladder's value without float32 rounding)."""
     B, S, _ = D.shape
     dev = D.device
     real = D < 1e8
     scale = torch.clamp(torch.where(real, D, 0.0).amax(dim=(1, 2)), min=1e-9)
     Dm = torch.where(real, D, 1e3 * scale[:, None, None])
-    f = torch.zeros((B, S, 1), device=dev)
-    g = torch.zeros((B, 1, S), device=dev)
+    f = torch.zeros((B, S, 1), dtype=D.dtype, device=dev)
+    g = torch.zeros((B, 1, S), dtype=D.dtype, device=dev)
     tiny = 1e-38
     blocks = [absorb] * (iters // absorb) + \
         ([iters % absorb] if iters % absorb else [])
@@ -100,8 +107,8 @@ def sinkhorn_cost_stab(D, eps_hi: float = 3e-2, eps_lo: float = 1e-4,
         eps = (eps_rel * scale)[:, None, None]
         for blk in blocks:
             Kt = torch.exp((f + g - Dm) / eps)
-            u = torch.ones((B, S), device=dev)
-            v = torch.ones((B, S), device=dev)
+            u = torch.ones((B, S), dtype=D.dtype, device=dev)
+            v = torch.ones((B, S), dtype=D.dtype, device=dev)
             for _ in range(blk):
                 u = 1.0 / torch.clamp(torch.bmm(Kt, v[:, :, None])[:, :, 0], min=tiny)
                 v = 1.0 / torch.clamp(torch.bmm(u[:, None, :], Kt)[:, 0, :], min=tiny)
