@@ -58,6 +58,7 @@ def main(argv=None) -> int:
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
     from tda_eeg_audio_tpu_torch.models.study import StudyRunner
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
+    from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
 
     card = card_line()
@@ -69,6 +70,7 @@ def main(argv=None) -> int:
         return time.perf_counter()
 
     HC.build()                                  # nvcc, before any clock
+    P1.build()
     WC.build()
     t0 = sync_time()
     ds = build_synthetic_device(n_subjects=n_subj, n_per_subject=per,
@@ -85,6 +87,7 @@ def main(argv=None) -> int:
                                  verbose=False)
             launches0, redone0 = HC.h1_diagrams_cuda.launches, run_tda.redone
             sk0 = WC.sinkhorn_tiered_cuda.launches
+            p10 = P1.phase1_cuda.launches
             t0 = sync_time()
             X, y, subjects, filenames, meta = runner.compute_feature_dataset()
             t1 = sync_time()
@@ -97,6 +100,7 @@ def main(argv=None) -> int:
                 control_s=t3 - t2, bank_batches=runner._bank_served,
                 bank_fallback=runner._bank_fallback,
                 kernel_launches=HC.h1_diagrams_cuda.launches - launches0,
+                phase1_launches=P1.phase1_cuda.launches - p10,
                 sinkhorn_launches=WC.sinkhorn_tiered_cuda.launches - sk0,
                 redone=dict(runner.redo_counts,
                             windows=run_tda.redone - redone0)))
@@ -105,8 +109,12 @@ def main(argv=None) -> int:
             checks = {"n_features_220": X.shape[1] == 220,
                       "rows_complete":
                           len(cmp_out["detailed_rows"]) >= len(ds) * 4,
+                      # every H1 chunk: one phase-1 launch, one reduction launch
+                      "phase1_per_reduction":
+                          runs[-1]["phase1_launches"] == runs[-1]["kernel_launches"],
                       "X_shape": list(X.shape)}
-            ok = bool(checks["n_features_220"] and checks["rows_complete"])
+            ok = bool(checks["n_features_220"] and checks["rows_complete"]
+                      and checks["phase1_per_reduction"])
             print(json.dumps({
                 "metric": "full_study_seconds",
                 "value": min(r["total"] for r in runs),

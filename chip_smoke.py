@@ -5,24 +5,34 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels — the H1 reduction, its instrumented twin, the
-     sosfiltfilt recurrence and the tiered Sinkhorn (four nvcc side by side,
-     sm_90a) — from the sources in the checkout;
-  3. hold the kernel against its plain PyTorch version on the card, at the
-     shapes of the main path: the features stage's n = 47 EEG windows and
-     the comparison's n = 124 Takens clouds of one 16-recording batch —
-     pair keys, bars, step counts and overflow flags must be identical —
+  2. build the CUDA kernels — the H1 reduction, its instrumented twin, H1
+     phase 1, the sosfiltfilt recurrence and the tiered Sinkhorn (five nvcc
+     side by side, sm_90a) — from the sources in the checkout;
+  3. hold the reduction kernel against its plain PyTorch version on the
+     card, at the shapes of the main path: the features stage's n = 47 EEG
+     windows and the comparison's n = 124 Takens clouds of one 16-recording
+     batch — `h1_diagrams_cuda` (the phase-1 kernel, then the reduction
+     kernel) against the plain phase 1 and reduction: pair keys, bars, step
+     counts and overflow flags must be identical —
      and on a ragged case the main path does not reach (more windows than
      resident blocks, windows without creators, padded clouds, a step
      budget that some windows exceed); read the instrumented build's
      shares of the step at both shapes (the `kernel phases` line);
+ 3b. the phase-1 kernel (`phase1_cuda`) against the plain `_phase1` on the
+     card, bit for bit on every key of its dict, at n = 47 (the features
+     batch), n = 124 (the 1,200 clouds with their point counts), the ragged
+     n = 24 clouds, tied grid clouds and n = 47 windows with NaN (windows
+     past a recording's end); timed (CUDA events: the whole launcher, its
+     sort alone, the kernel alone, the plain version), peak memory of both,
+     the bound (the sieve's compares, counted from the plain vstar);
   4. drive one full-width study batch (16 synthetic recordings, 47 channels,
      5 bands, 1537 taps, T_pad 5800, K 39 / 15) through
      eeg_feature_program → audio_h1_program (mismatch audio) →
      comparison_program, with the launch count zeroed just before and read
      just after, the comparison stage's parts timed by its own spans, and
-     check shapes, finiteness and launches (the H1 kernel's by stage, the
-     tiered Sinkhorn's per batch);
+     check shapes, finiteness and launches (the H1 kernels' by stage — one
+     phase-1 launch for every reduction launch — the tiered Sinkhorn's per
+     batch);
  4b. the tiered Sinkhorn kernel against its plain version on the card, on
      the 2,400 pairs phase 4's comparison hands it (kept in the warm-up run)
      and on synthetic pairs of every width class (empty sides, 16 | 17 ...
@@ -362,6 +372,112 @@ def ragged_clouds(dev, n_windows: int = 6000, n: int = 24, seed: int = 0):
     return dm.float().contiguous(), n_pts.to(torch.int32)
 
 
+def grid_clouds(dev, n_windows: int = 2048, n: int = 18, seed: int = 5):
+    """Clouds of n points on a 4 × 4 × 4 integer grid (many exactly tied
+    float32 distances, zero ones between coincident points), made from a
+    seed with numpy."""
+    import numpy as np
+    import torch
+
+    pts = np.random.default_rng(seed).integers(0, 4, (n_windows, n, 3)).astype(np.float32)
+    d = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1)) / 3.0
+    d[:, np.arange(n), np.arange(n)] = 0.0
+    return torch.as_tensor(d.astype(np.float32), device=dev).contiguous()
+
+
+def nan_windows(d47, n_windows: int = 256):
+    """The first n_windows of the features batch with what a window past a
+    recording's end reads (NaN samples make every correlation NaN, the
+    diagonal stays 0): a quarter all NaN, a quarter with one NaN channel."""
+    import torch
+
+    d = d47[:n_windows].clone()
+    q = n_windows // 4
+    eye = torch.eye(d.shape[-1], dtype=torch.bool, device=d.device)
+    d[:q] = torch.where(eye, 0.0, torch.nan)
+    d[q:2 * q, 5, :] = torch.nan
+    d[q:2 * q, :, 5] = torch.nan
+    d[q:2 * q, 5, 5] = 0.0
+    return d.contiguous()
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (floats compared as their int32 bits, so
+    NaN equals NaN and −0.0 differs from +0.0)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase1_check(dm, n_pts, n, na_max, reps: int = 5):
+    """Phase 3b: the phase-1 kernel against the plain `_phase1` on the same
+    inputs on the card, bit for bit on every key.  Times (CUDA events): the
+    launcher (`phase1_cuda`: the stable sort, then the kernel), the sort
+    alone, the kernel alone and the plain version; each one's peak memory
+    above what was allocated before; the bound's two terms: dm (and n_pts)
+    read once plus the dict written once over HBM, and two int32 compares
+    per (edge, vertex) the sieve scans (`sieve_compares` on the plain
+    vstar) at the int32 rate.  The launches made here are not counted."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
+    from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
+
+    launches0 = P1.phase1_cuda.launches
+    got = P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)
+    per_call = P1.phase1_cuda.launches - launches0
+    want = H._phase1(dm, n, 2.0, na_max, n_pts)
+    mismatched = [k for k in want if not (
+        got[k] == want[k] if k == "m" else same_bits(got[k], want[k]))]
+    err = 0.0
+    for k in ("ew_r", "h0_deaths"):
+        a, b = got[k], want[k]
+        same = (a == b) | (a.isnan() & b.isnan())
+        if not bool(same.all()):
+            err = max(err, float((a - b).abs()[~same].nan_to_num(nan=float("inf")).max()))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    run_kernel = lambda: P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)  # noqa: E731
+    run_plain = lambda: H._phase1(dm, n, 2.0, na_max, n_pts)  # noqa: E731
+    ew_r, e_sort = P1.sort_edges(dm, n)
+    ms = cuda_ms(run_kernel, reps)
+    sort_ms = cuda_ms(lambda: P1.sort_edges(dm, n), reps)
+    kernel_ms = cuda_ms(lambda: P1._launch(dm, ew_r, e_sort, n_pts, n, 2.0, na_max), reps)
+    plain_ms = cuda_ms(run_plain, 2)
+    peak_kernel, peak_plain = peak(run_kernel), peak(run_plain)
+    P1.phase1_cuda.launches = launches0
+
+    in_bytes = dm.numel() * 4 + (0 if n_pts is None else n_pts.numel() * 4)
+    out_bytes = sum(t.numel() * t.element_size() for t in want.values()
+                    if torch.is_tensor(t))
+    compares = int(P1.sieve_compares(want["vstar_r"], n).sum())
+    plan = P1.kernel_plan(n, na_max)
+    return dict(n=n, windows=int(dm.shape[0]), launches_per_call=per_call,
+                mismatched=mismatched, max_abs_err=err, ms=ms, sort_ms=sort_ms,
+                kernel_ms=kernel_ms,
+                plain_ms=plain_ms, peak_bytes=peak_kernel,
+                plain_peak_bytes=peak_plain, bytes=in_bytes + out_bytes,
+                compares=compares,
+                t_bytes=(in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                t_ops=compares / INT32_OPS_PER_S * 1e3,
+                threads=plan["threads"], smem_bytes=plan["smem_bytes"],
+                blocks_per_sm=P1.blocks_per_sm(n),
+                m_cx_mean=float(want["m_cx"].double().mean()),
+                creators_mean=float((want["na_list"] >= 0).sum(1).double().mean()),
+                nan_windows=int(dm.isnan().any(-1).any(-1).sum()))
+
+
 def main_path(batch, mis, cfg, dev):
     """One full-width batch through the three entry points, timed per stage,
     with the kernel's launches counted per stage."""
@@ -369,15 +485,18 @@ def main_path(batch, mis, cfg, dev):
 
     from tda_eeg_audio_tpu_torch.models import programs as P
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+    from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
 
-    ms, launches, sk_launches = {}, {}, {}
+    ms, launches, p1_launches, sk_launches = {}, {}, {}, {}
 
     def stage(name, fn):
         before = h1_diagrams_cuda.launches
+        before_p1 = phase1_cuda.launches
         before_sk = sinkhorn_tiered_cuda.launches
         out, ms[name] = wall_ms(fn)
         launches[name] = h1_diagrams_cuda.launches - before
+        p1_launches[name] = phase1_cuda.launches - before_p1
         sk_launches[name] = sinkhorn_tiered_cuda.launches - before_sk
         return out
 
@@ -392,7 +511,8 @@ def main_path(batch, mis, cfg, dev):
         N_WIN_MAX, N_RS_MAX, K_CMP, device=dev))
     torch.cuda.synchronize()
     return dict(agg=agg, diag=diag, ovf=ovf, mo=mo, out=out, ms=ms,
-                launches=launches, sinkhorn_launches=sk_launches)
+                launches=launches, phase1_launches=p1_launches,
+                sinkhorn_launches=sk_launches)
 
 
 def float_ratio(got, ref, rtol):
@@ -657,25 +777,29 @@ def runner_phase(store, cfg, **runner_kw):
     from tda_eeg_audio_tpu_torch.models.study import BAND_NAMES, StudyRunner
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
     from tda_eeg_audio_tpu_torch.ops.iir_cuda import sosfiltfilt_bank_cuda
+    from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
 
     n_rec = len(store)
-    secs, launches, iir_launches, sk_launches = {}, {}, {}, {}
+    secs, launches, p1_launches, iir_launches, sk_launches = {}, {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as td:
         runner = StudyRunner(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                              results_dir=td, verbose=False, **runner_kw)
         redone0 = run_tda.redone
         h1_diagrams_cuda.launches = 0
+        phase1_cuda.launches = 0
         sosfiltfilt_bank_cuda.launches = 0
         sinkhorn_tiered_cuda.launches = 0
 
         def stage(name, fn):
             before = h1_diagrams_cuda.launches
+            before_p1 = phase1_cuda.launches
             before_iir = sosfiltfilt_bank_cuda.launches
             before_sk = sinkhorn_tiered_cuda.launches
             out, ms = wall_ms(fn)
             secs[name] = ms / 1e3
             launches[name] = h1_diagrams_cuda.launches - before
+            p1_launches[name] = phase1_cuda.launches - before_p1
             iir_launches[name] = sosfiltfilt_bank_cuda.launches - before_iir
             sk_launches[name] = sinkhorn_tiered_cuda.launches - before_sk
             return out
@@ -686,6 +810,7 @@ def runner_phase(store, cfg, **runner_kw):
                         lambda: runner.run_comparison(n_permutations=1000))
         ctl = stage("control", runner.run_control)
         total = h1_diagrams_cuda.launches
+        total_p1 = phase1_cuda.launches
         total_iir = sosfiltfilt_bank_cuda.launches
         total_sk = sinkhorn_tiered_cuda.launches
         artifacts = sorted(p.name for p in Path(td).iterdir())
@@ -711,6 +836,11 @@ def runner_phase(store, cfg, **runner_kw):
                             f"p-values {ps}")
     if min(launches.values()) <= 0:
         problems.append(f"kernel launches by stage {launches}")
+    # every chunk of h1_diagrams_cuda launches the phase-1 kernel, then the
+    # reduction kernel
+    if p1_launches != launches:
+        problems.append(f"h1_phase1 launches by stage {p1_launches}, "
+                        f"h1_reduce {launches}")
     # the IIR bank filters the EEG of every features batch (and of the
     # control's exact pairing); the FIR path launches it nowhere
     if (iir_launches["features"] > 0) != (cfg.filter_impl == "iir_scan"):
@@ -726,6 +856,7 @@ def runner_phase(store, cfg, **runner_kw):
         problems.append(f"artifacts {artifacts}")
     report = dict(recordings=n_rec, filter_impl=cfg.filter_impl, seconds=secs,
                   launches=launches, launches_total=total,
+                  phase1_launches=p1_launches, phase1_launches_total=total_p1,
                   sosfiltfilt_launches=iir_launches,
                   sosfiltfilt_launches_total=total_iir,
                   sinkhorn_launches=sk_launches,
@@ -876,6 +1007,7 @@ def cli_phase():
     from tda_eeg_audio_tpu_torch import cli
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
+    from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
 
     report, problems = {}, []
@@ -895,6 +1027,7 @@ def cli_phase():
             out = io.StringIO()
             redone0 = run_tda.redone
             h1_diagrams_cuda.launches = 0
+            phase1_cuda.launches = 0
             sinkhorn_tiered_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -905,6 +1038,7 @@ def cli_phase():
             lines = out.getvalue().strip().splitlines()
             report[name] = dict(seconds=time.perf_counter() - t0,
                                 launches=h1_diagrams_cuda.launches,
+                                phase1_launches=phase1_cuda.launches,
                                 sinkhorn_launches=sinkhorn_tiered_cuda.launches,
                                 windows_redone=run_tda.redone - redone0,
                                 said=lines[-1] if lines else "")
@@ -1008,8 +1142,9 @@ def cli_phase():
     for name, r in report.items():
         on_card = name in ("features", "features_partial_0", "features_partial_1",
                            "compare", "compare_exact", "control_exact")
-        if (r["launches"] > 0) != on_card:
-            problems.append(f"{name}: {r['launches']} kernel launches")
+        if (r["launches"] > 0) != on_card or r["phase1_launches"] != r["launches"]:
+            problems.append(f"{name}: {r['launches']} h1_reduce and "
+                            f"{r['phase1_launches']} h1_phase1 launches")
     return report, exact_vs_sinkhorn, x_ratio, problems
 
 
@@ -1261,6 +1396,7 @@ def main() -> int:
     from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import iir_cuda as IC
+    from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
@@ -1274,9 +1410,10 @@ def main() -> int:
     # ── phase 2: build every kernel, one nvcc each, side by side ──
     t0 = time.perf_counter()
     _, nvcc_s = cuda_build.build_libraries(
-        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ())],
-        verbose=True)
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()), (IC.SRC, ()),
+         (WC.SRC, ())], verbose=True)
     HC._load()
+    P1._load()
     IC._load()
     WC._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
@@ -1336,17 +1473,49 @@ def main() -> int:
               words=checks[k]["phases"]["words"]) for k in ("n47", "n124")}),
           flush=True)
 
+    # ── phase 3b: the phase-1 kernel vs the plain phase 1 on the card ──
+    p1 = {}
+    for name, (dm, np_, n, na) in {
+            "n47": (d47, None, 47, 128),
+            "n124": (d124, npts, 124, 96),
+            "ragged": (dm24, npts24, 24, 64),
+            "tied": (grid_clouds(dev), None, 18, 64),
+            "nan": (nan_windows(d47), None, 47, 128)}.items():
+        r = phase1_check(dm, np_, n, na)
+        p1[name] = r
+        print(f"h1_phase1 vs plain {name} (n={n}): {r['windows']} windows in "
+              f"{r['launches_per_call']} launch(es), "
+              f"mismatched={r['mismatched']}, max_abs_err={r['max_abs_err']}, "
+              f"launcher {r['ms']:.4f} ms (sort {r['sort_ms']:.4f} ms, kernel "
+              f"{r['kernel_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, peak "
+              f"{r['peak_bytes'] / 1e6:.1f} MB (plain {r['plain_peak_bytes'] / 1e6:.1f}"
+              f" MB), bound bytes {r['t_bytes']:.4f} ms / operations "
+              f"{r['t_ops']:.4f} ms ({r['compares']} sieve compares), block "
+              f"{r['threads']} threads {r['smem_bytes']} B, {r['blocks_per_sm']} "
+              f"blocks/SM, m_cx mean {r['m_cx_mean']:.1f}, creators mean "
+              f"{r['creators_mean']:.2f}, NaN windows {r['nan_windows']}",
+              flush=True)
+    bad_p1 = [k for k, r in p1.items() if r["mismatched"] or r["launches_per_call"] != 1]
+    if bad_p1 or p1["nan"]["nan_windows"] == 0:
+        print(f"FAIL: h1_phase1 kernel vs plain phase 1: "
+              f"{ {k: (p1[k]['mismatched'], p1[k]['launches_per_call']) for k in bad_p1} }",
+              file=sys.stderr)
+        return 1
+
     # ── phase 4: the main path, its comparison stage's parts timed ──
     # warm-up (cuFFT plans etc.), keeping the pairs the comparison hands to
     # the tiered Sinkhorn for phase 4b
     sk_pairs = capture_sinkhorn_pairs(lambda: main_path(batch, mis, cfg, dev))
     HC.h1_diagrams_cuda.launches = 0
+    P1.phase1_cuda.launches = 0
     WC.sinkhorn_tiered_cuda.launches = 0
     with timed_spans() as parts:
         res = main_path(batch, mis, cfg, dev)
     total = HC.h1_diagrams_cuda.launches
+    p1_total = P1.phase1_cuda.launches
     sk_total = WC.sinkhorn_tiered_cuda.launches
     launches = res["launches"]
+    p1_launches = res["phase1_launches"]
     sk_launches = res["sinkhorn_launches"]
     out, mo = res["out"], res["mo"]
     expect = dict(agg=(B_REC, 5, 2, 11, 2), diag=(B_REC, 5, 8), ovf=(B_REC,))
@@ -1365,6 +1534,10 @@ def main() -> int:
     # features runs the kernel at n = 47 only, mismatch audio at n = 124 only
     if total <= 0 or min(launches.values()) <= 0:
         problems.append(f"kernel launches by stage {launches}")
+    # each h1_diagrams_cuda chunk: one phase-1 launch, one reduction launch
+    if p1_launches != launches or p1_total != total:
+        problems.append(f"h1_phase1 launches by stage {p1_launches}, "
+                        f"h1_reduce {launches}")
     # one tiered Sinkhorn call per batch, in the comparison stage only
     if sk_launches["comparison"] <= 0 or sk_total != sk_launches["comparison"]:
         problems.append(f"sinkhorn_tiered launches by stage {sk_launches}")
@@ -1383,8 +1556,9 @@ def main() -> int:
           f"(flags of the entry points; the runner redoes them, phase 6)",
           flush=True)
     print(f"kernel launches on the main path: h1_reduce {total} (by stage "
-          f"{launches}), sinkhorn_tiered {sk_total} per batch (by stage "
-          f"{sk_launches})", flush=True)
+          f"{launches}), h1_phase1 {p1_total} (by stage {p1_launches}), "
+          f"sinkhorn_tiered {sk_total} per batch (by stage {sk_launches})",
+          flush=True)
     print("comparison parts (wall ms, timed spans): " + json.dumps(
         {k: round(v, 2) for k, v in parts.items()}), flush=True)
     print("w_h1 band means: " + json.dumps(
@@ -1479,6 +1653,7 @@ def main() -> int:
     print("cli (seconds, kernel launches, windows redone per command): "
           + json.dumps({k: dict(seconds=round(r["seconds"], 3),
                                 launches=r["launches"],
+                                phase1_launches=r["phase1_launches"],
                                 sinkhorn_launches=r["sinkhorn_launches"],
                                 windows_redone=r["windows_redone"])
                         for k, r in cli_report.items()}), flush=True)
@@ -1559,6 +1734,38 @@ def main() -> int:
             steps_mean=r["steps_mean"], steps_max=r["steps_max"])
               for r in (r47, r124)},
         held_against_plain=not (r47["mismatched"] or r124["mismatched"])),
+        dict(
+        name="h1_phase1", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/h1_phase1.cu",
+        replaces="tda_eeg_audio_tpu/ops/homology_h1.py:181 _phase1 (XLA, not Pallas)",
+        launches=p1_total + report["phase1_launches_total"]
+        + sum(r["phase1_launches"] for r in cli_report.values())
+        + iir_report["phase1_launches_total"],
+        launches_by_path=dict(
+            one_batch=p1_launches, runner=report["phase1_launches"],
+            cli={k: r["phase1_launches"] for k, r in cli_report.items()},
+            runner_iir_scan=iir_report["phase1_launches"]),
+        max_abs_err=max(r["max_abs_err"] for r in p1.values()),
+        # the main path's two shapes, summed: the launcher (stable sort +
+        # kernel) against the plain _phase1, the function the bound counts
+        ms=p1["n47"]["ms"] + p1["n124"]["ms"],
+        plain_ms=p1["n47"]["plain_ms"] + p1["n124"]["plain_ms"],
+        kernel_ms=p1["n47"]["kernel_ms"] + p1["n124"]["kernel_ms"],
+        sort_ms=p1["n47"]["sort_ms"] + p1["n124"]["sort_ms"],
+        bound_ms=max(p1["n47"]["t_bytes"] + p1["n124"]["t_bytes"],
+                     p1["n47"]["t_ops"] + p1["n124"]["t_ops"]),
+        bound_by="bytes" if p1["n47"]["t_bytes"] + p1["n124"]["t_bytes"]
+        >= p1["n47"]["t_ops"] + p1["n124"]["t_ops"] else "operations",
+        library_ms=None,
+        by_case={k: dict(n=r["n"], windows=r["windows"], ms=r["ms"],
+                         sort_ms=r["sort_ms"], kernel_ms=r["kernel_ms"],
+                         plain_ms=r["plain_ms"], peak_bytes=r["peak_bytes"],
+                         plain_peak_bytes=r["plain_peak_bytes"],
+                         bound_ms=max(r["t_bytes"], r["t_ops"]),
+                         t_bytes=r["t_bytes"], t_ops=r["t_ops"],
+                         mismatched=r["mismatched"])
+                 for k, r in p1.items()},
+        held_against_plain=not any(r["mismatched"] for r in p1.values())),
         dict(
         name="sosfiltfilt", route="cuda",
         source="tda_eeg_audio_tpu_torch/csrc/sosfiltfilt.cu",

@@ -17,11 +17,12 @@ shared-memory access; the source's header has the details.
 Every host-side decision is a pure function that runs without CUDA:
 `kernel_shape`, `kernel_plan`, `phase1_chunk`.
 
-Phase 1 (edge ranks, forest/H0, apparent sieve, creator list) and bar
-extraction stay in PyTorch (`homology_h1`).  The plain PyTorch reduction
-`homology_h1.reduce_plain` is the same function: `h1_diagrams_cuda` takes it
-for a tensor on the CPU, and launches the kernel (or raises) for a CUDA
-tensor — there is no fallback.
+Phase 1 (edge ranks, forest/H0, apparent sieve, creator list) is a kernel
+of its own, `csrc/h1_phase1.cu` via `phase1_cuda`; bar extraction stays in
+PyTorch (`homology_h1`).  The plain PyTorch phase 1 and reduction
+(`homology_h1._phase1`, `homology_h1.reduce_plain`) are the same functions:
+`h1_diagrams_cuda` takes them for a tensor on the CPU, and launches both
+kernels (or raises) for a CUDA tensor — there is no fallback.
 
 The kernel is compiled by `nvcc` at first use from the source in the
 checkout into `build/torch_kernels/` (`cuda_build`) and bound with ctypes.
@@ -39,8 +40,9 @@ from pathlib import Path
 import torch
 
 from . import cuda_build
-from .homology_h1 import (_extract_bars, _phase1, h1_diagrams_plain,
-                          map_window_chunks, reduction_inputs)
+from .homology_h1 import (_extract_bars, h1_diagrams_plain, map_window_chunks,
+                          reduction_inputs)
+from .phase1_cuda import phase1_cuda
 
 __all__ = ["h1_diagrams_cuda", "h1_diagrams_plain", "reduce_cuda",
            "reduce_cuda_profiled", "build", "kernel_shape",
@@ -109,10 +111,12 @@ def kernel_plan(n: int, na: int, n_windows: int, resident_blocks: int,
 
 
 def phase1_chunk(n: int) -> int:
-    """Windows per `_phase1` call: its largest transients are the apparent
-    sieve's (B, m, n) tensors (an int32 gather, bool comparisons, the int32
-    first-vertex select): 8 bytes per (edge, vertex) reckoned, 6.5 measured
-    at n = 124 (`tools/h1_kernel_profile.py`)."""
+    """Windows per phase-1 call: the plain `_phase1`'s largest transients
+    are the apparent sieve's (B, m, n) tensors (an int32 gather, bool
+    comparisons, the int32 first-vertex select): 8 bytes per (edge, vertex)
+    reckoned, 6.5 measured at n = 124 (`tools/h1_kernel_profile.py`).  The
+    kernel's transients are far smaller; the chunk still holds a whole
+    study batch, one launch of each kernel per stage."""
     m = n * (n - 1) // 2
     return max(1, PHASE1_BYTES // (8 * m * n))
 
@@ -219,12 +223,13 @@ def reduce_cuda_profiled(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
 
 def h1_diagrams_cuda(dm: torch.Tensor, n_pts=None, *, n: int, thresh: float,
                      na_max: int = 96, h1_max: int = 96, step_budget: int = 8192):
-    """Batched exact H1 diagrams; the reduction runs in the CUDA kernel.
+    """Batched exact H1 diagrams; phase 1 and the reduction run in CUDA
+    kernels.
 
     Same arguments and return contract as `homology_h1.h1_diagrams_plain`.
-    A CPU tensor takes the plain PyTorch reduction; a CUDA tensor launches
-    the kernel, once per `phase1_chunk(n)` windows (phase 1's memory bounds
-    the chunk, not the kernel's arena)."""
+    A CPU tensor takes the plain PyTorch phase 1 and reduction; a CUDA
+    tensor launches the phase-1 kernel and the reduction kernel once each
+    per `phase1_chunk(n)` windows (`diagrams_on_card`)."""
     if dm.device.type == "cpu":
         return h1_diagrams_plain(dm, n_pts, n=n, thresh=thresh, na_max=na_max,
                                  h1_max=h1_max, step_budget=step_budget)
@@ -237,13 +242,19 @@ def h1_diagrams_cuda(dm: torch.Tensor, n_pts=None, *, n: int, thresh: float,
     if na_max > MAX_NA:
         raise ValueError(f"na_max={na_max} > {MAX_NA}")
 
-    def run(dm_c, n_pts_c):
-        ph = _phase1(dm_c.contiguous(), n, thresh, na_max, n_pts_c)
-        pair, steps, ovf = reduce_cuda(*reduction_inputs(ph), n=n,
-                                       step_budget=step_budget)
-        return _extract_bars(pair, steps, ovf, ph, n, h1_max)
-
+    run = functools.partial(diagrams_on_card, n=n, thresh=thresh, na_max=na_max,
+                            h1_max=h1_max, step_budget=step_budget)
     return map_window_chunks(run, dm, n_pts, phase1_chunk(n))
+
+
+def diagrams_on_card(dm, n_pts, *, n: int, thresh: float, na_max: int,
+                     h1_max: int, step_budget: int):
+    """One chunk of `h1_diagrams_cuda` on the card: the phase-1 kernel, the
+    reduction kernel, the bar extraction."""
+    ph = phase1_cuda(dm.contiguous(), n, thresh, na_max, n_pts)
+    pair, steps, ovf = reduce_cuda(*reduction_inputs(ph), n=n,
+                                   step_budget=step_budget)
+    return _extract_bars(pair, steps, ovf, ph, n, h1_max)
 
 
 h1_diagrams_cuda.launches = 0

@@ -82,12 +82,23 @@ def _phase1(dm: torch.Tensor, n: int, thresh: float, na_max: int, n_pts=None):
     n_pts: (B,) valid-point counts (points padded at the end), or None.
 
     Ties in float32 weights are broken by static edge order through a
-    stable sort, exactly as the reference's stable payload sort."""
+    stable sort, exactly as the reference's stable payload sort.  The four
+    parts (`_edge_ranks`, `_boruvka_forest`, `_sieve`, `_compact`) are
+    timed one by one by `tools/h1_kernel_profile.py`; the CUDA kernel
+    `phase1_cuda` computes the whole."""
+    rk = _edge_ranks(dm, n, thresh, n_pts)
+    tree_mat = _boruvka_forest(rk["key_mat"])
+    vstar_static = _sieve(rk["rank_mat"], rk["e_rank"], n)
+    return _compact(rk, tree_mat, vstar_static, n, na_max)
+
+
+def _edge_ranks(dm: torch.Tensor, n: int, thresh: float, n_pts=None):
+    """The enclosing-radius cut m_cx, the stable edge sort (ew_r, e_sort),
+    the static → rank scatter e_rank, the rank matrix (BIG on the diagonal)
+    and the forest's key matrix (BIG outside the complex)."""
     st = static_tables(n)
     m = st["m"]
     dev = dm.device
-    iu = torch.as_tensor(st["iu"], device=dev)
-    ju = torch.as_tensor(st["ju"], device=dev)
     flat_ut = torch.as_tensor(st["flat_ut"], device=dev)
     edge_id_flat = torch.as_tensor(st["edge_id_flat"], device=dev)
     B = dm.shape[0]
@@ -110,25 +121,47 @@ def _phase1(dm: torch.Tensor, n: int, thresh: float, na_max: int, n_pts=None):
     iota_m = torch.arange(m, device=dev)
     e_rank = torch.empty_like(e_sort).scatter_(1, e_sort, iota_m.expand(B, m))
     m_cx = (ew_r <= eff_thresh[:, None]).sum(dim=-1)
-    in_cx_r = iota_m[None, :] < m_cx[:, None]
 
     e_rank_pad = torch.cat([e_rank, torch.full((B, 1), BIG, dtype=e_rank.dtype,
                                                 device=dev)], dim=-1)
     rank_mat = e_rank_pad[:, edge_id_flat].reshape(B, n, n).to(torch.int32)
-
     key_mat = torch.where(rank_mat < m_cx[:, None, None].to(torch.int32),
                           rank_mat, BIG)
-    tree_mat = _boruvka_forest(key_mat)
-    tree_static = tree_mat.reshape(B, n * n)[:, flat_ut]
+    return dict(ew_r=ew_r, e_sort=e_sort, e_rank=e_rank, m_cx=m_cx,
+                rank_mat=rank_mat, key_mat=key_mat)
 
-    # apparent sieve: edge e apparent iff ∃v with both cross ranks < rank(e);
-    # its partner triangle is (rank(e), first such v)
+
+def _sieve(rank_mat: torch.Tensor, e_rank: torch.Tensor, n: int):
+    """Apparent sieve: edge e apparent iff ∃v with both cross ranks <
+    rank(e); its partner triangle is (rank(e), first such v).  Returns the
+    first v per static edge, −1 where none."""
+    st = static_tables(n)
+    dev = rank_mat.device
+    iu = torch.as_tensor(st["iu"], device=dev)
+    ju = torch.as_tensor(st["ju"], device=dev)
+    vr = torch.arange(n, device=dev)
     r_e = e_rank.to(torch.int32)[:, :, None]
     both = (rank_mat[:, iu, :] < r_e) & (rank_mat[:, ju, :] < r_e)  # (B, m, n)
     vstar_static = torch.where(both, vr.to(torch.int32), n).amin(dim=-1)
-    vstar_static = torch.where(vstar_static < n, vstar_static, -1)
+    return torch.where(vstar_static < n, vstar_static, -1)
 
-    # static order → rank order
+
+def _compact(rk: dict, tree_mat: torch.Tensor, vstar_static: torch.Tensor,
+             n: int, na_max: int):
+    """Static order → rank order, H0 deaths and the creator list: the dict
+    of `_phase1`."""
+    st = static_tables(n)
+    m = st["m"]
+    dev = tree_mat.device
+    iu = torch.as_tensor(st["iu"], device=dev)
+    ju = torch.as_tensor(st["ju"], device=dev)
+    flat_ut = torch.as_tensor(st["flat_ut"], device=dev)
+    B = tree_mat.shape[0]
+    ew_r, e_sort, m_cx = rk["ew_r"], rk["e_sort"], rk["m_cx"]
+    iota_m = torch.arange(m, device=dev)
+    in_cx_r = iota_m[None, :] < m_cx[:, None]
+    tree_static = tree_mat.reshape(B, n * n)[:, flat_ut]
+
     tree_r = tree_static.gather(1, e_sort)
     vstar_r = vstar_static.gather(1, e_sort)
     iu_r = iu[e_sort]
@@ -146,11 +179,11 @@ def _phase1(dm: torch.Tensor, n: int, thresh: float, na_max: int, n_pts=None):
     na_key = torch.where(na_mask, iota_m, -1)
     na_list = torch.sort(na_key, dim=-1, descending=True).values[:, :na_max]
     overflow_na = na_mask.sum(dim=-1) > na_max
-    return dict(m=m, m_cx=m_cx.to(torch.int32), ew_r=ew_r, rank_mat=rank_mat,
-                iu_r=iu_r.to(torch.int32), ju_r=ju_r.to(torch.int32),
-                vstar_r=vstar_r.to(torch.int32), apparent_r=apparent_r,
-                na_list=na_list.to(torch.int32), overflow_na=overflow_na,
-                h0_deaths=h0_deaths, h0_mask=h0_mask,
+    return dict(m=m, m_cx=m_cx.to(torch.int32), ew_r=ew_r,
+                rank_mat=rk["rank_mat"], iu_r=iu_r.to(torch.int32),
+                ju_r=ju_r.to(torch.int32), vstar_r=vstar_r.to(torch.int32),
+                apparent_r=apparent_r, na_list=na_list.to(torch.int32),
+                overflow_na=overflow_na, h0_deaths=h0_deaths, h0_mask=h0_mask,
                 n_tree=n_tree.to(torch.int32))
 
 

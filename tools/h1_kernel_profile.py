@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the H1 reduction kernel's time goes on the card, at the main
-path's shapes.
+"""Where the H1 kernels' time goes on the card, at the main path's shapes.
 
     python3 tools/h1_kernel_profile.py [--reps 3] [--out FILE]
 
-Needs one CUDA card and nvcc.  Builds the kernel
-(`tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu`) and its instrumented twin
-(-DH1_PROFILE) side by side.  On the operands of one 16-recording study
-batch (3120 EEG windows at n = 47, 1200 Takens clouds at n = 124) it
-  * times phase 1 as the wrapper runs it, with its peak memory (what
-    `phase1_chunk` reckons with);
+Needs one CUDA card and nvcc.  Builds the reduction kernel
+(`tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu`), its instrumented twin
+(-DH1_PROFILE) and the phase-1 kernel (`csrc/h1_phase1.cu`) side by side.
+On the operands of one 16-recording study batch (3120 EEG windows at
+n = 47, 1200 Takens clouds at n = 124) it
+  * splits the plain phase 1 (`homology_h1._phase1`) into its parts, each
+    timed by CUDA events on the previous part's outputs with its peak
+    memory: the stable sort and rank scatter (`_edge_ranks`), the forest
+    (`_boruvka_forest`), the sieve (`_sieve`), the compactions
+    (`_compact`); beside them the phase-1 kernel's launcher, its sort and
+    the kernel alone, with peak memory and the kernel held bit for bit
+    against the plain version (chip_smoke.py's `phase1_check`);
   * holds the kernel and its instrumented twin against each other (pair
     keys, steps, overflow: equal) and times the kernel by CUDA events;
   * reads the instrumented build: the share of thread 0's clock ticks per
@@ -59,13 +64,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("h1_kernel_profile: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import (B_REC, K_FEAT, card_line, cuda_ms, profile_reading,
-                            stage_inputs, wall_ms)
+    from chip_smoke import (B_REC, K_FEAT, card_line, cuda_ms, phase1_check,
+                            profile_reading, stage_inputs)
     from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
     from tda_eeg_audio_tpu_torch.io.synthetic import SynthDataset, load_batch
     from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
+    from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
 
     dev = torch.device("cuda")
     out = [dict(card=card_line(), torch=torch.__version__)]
@@ -76,7 +82,7 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
 
     _, build_s = cuda_build.build_libraries(
-        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS)], verbose=True)
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ())], verbose=True)
     emit(build_s=build_s)
 
     cfg = DEFAULT_CONFIG
@@ -90,18 +96,37 @@ def main() -> int:
         n, na = SHAPES[name]
         B = dm.shape[0]
 
-        phase1 = lambda: H._phase1(dm, n, 2.0, na, n_pts)
-        phase1()                                    # warm
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        ph, ms_phase1 = wall_ms(phase1)
-        peak = torch.cuda.max_memory_allocated() - before
-        emit(shape=name, phase1=dict(
-            ms=ms_phase1, peak_bytes=peak, per_window_bytes=peak / B,
-            bytes_per_edge_vertex=peak / B / (n * n * (n - 1) // 2),
-            chunk_windows=HC.phase1_chunk(n)))
-        ins = H.reduction_inputs(ph)
-        del ph
+        def timed(fn):
+            """(CUDA-event ms over args.reps, peak bytes above the start)."""
+            fn()                                    # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            return cuda_ms(fn, args.reps), torch.cuda.max_memory_allocated() - before
+
+        rk = H._edge_ranks(dm, n, 2.0, n_pts)
+        tree = H._boruvka_forest(rk["key_mat"])
+        vstar = H._sieve(rk["rank_mat"], rk["e_rank"], n)
+        parts = dict(
+            sort_and_ranks=lambda: H._edge_ranks(dm, n, 2.0, n_pts),
+            forest=lambda: H._boruvka_forest(rk["key_mat"]),
+            sieve=lambda: H._sieve(rk["rank_mat"], rk["e_rank"], n),
+            compactions=lambda: H._compact(rk, tree, vstar, n, na),
+            whole=lambda: H._phase1(dm, n, 2.0, na, n_pts))
+        split = {}
+        for part, fn in parts.items():
+            ms, peak = timed(fn)
+            split[part] = dict(ms=ms, peak_bytes=peak)
+        del rk, tree, vstar
+        m = n * (n - 1) // 2
+        kernel = phase1_check(dm, n_pts, n, na, args.reps)
+        ok &= not kernel["mismatched"]
+        emit(shape=name, windows=B, phase1_plain=split,
+             plain_bytes_per_edge_vertex=split["whole"]["peak_bytes"] / B / (m * n),
+             chunk_windows=HC.phase1_chunk(n), phase1_kernel=kernel)
+        ins = H.reduction_inputs(P1.phase1_cuda(dm, n, 2.0, na, n_pts))
 
         run = lambda: HC.reduce_cuda(*ins, n=n, step_budget=STEP_BUDGET)
         ref = run()
