@@ -5,9 +5,10 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels — the H1 reduction, its instrumented twin, H1
-     phase 1, the sosfiltfilt recurrence and the tiered Sinkhorn (five nvcc
-     side by side, sm_90a) — from the sources in the checkout;
+  2. build the CUDA kernels — the H1 reduction and H1 phase 1, each with
+     its instrumented twin, the sosfiltfilt recurrence and the tiered
+     Sinkhorn (six nvcc side by side, sm_90a) — from the sources in the
+     checkout;
   3. hold the reduction kernel against its plain PyTorch version on the
      card, at the shapes of the main path: the features stage's n = 47 EEG
      windows and the comparison's n = 124 Takens clouds of one 16-recording
@@ -18,13 +19,18 @@ Phases, each fatal on failure:
      resident blocks, windows without creators, padded clouds, a step
      budget that some windows exceed); read the instrumented build's
      shares of the step at both shapes (the `kernel phases` line);
- 3b. the phase-1 kernel (`phase1_cuda`) against the plain `_phase1` on the
-     card, bit for bit on every key of its dict, at n = 47 (the features
-     batch), n = 124 (the 1,200 clouds with their point counts), the ragged
-     n = 24 clouds, tied grid clouds and n = 47 windows with NaN (windows
-     past a recording's end); timed (CUDA events: the whole launcher, its
-     sort alone, the kernel alone, the plain version), peak memory of both,
-     the bound (the sieve's compares, counted from the plain vstar);
+ 3b. the phase-1 kernel (`phase1_cuda`, one launch: the edge sort is inside
+     it) against the plain `_phase1` on the card, bit for bit on every key
+     of its dict, at n = 47 (the features batch), n = 124 (the 1,200 clouds
+     with their point counts), the ragged n = 24 clouds, tied grid clouds,
+     n = 47 windows with NaN (windows past a recording's end), and n = 47
+     windows with tied -0.0 / +0.0 weights and ±NaN channels held against
+     `_phase1` on a CPU copy (the CPU's and JAX's edge order); whether the
+     card's own torch.sort(stable=True) gives that order (a reading); timed
+     (CUDA events: the launcher, the plain version), peak memory of both,
+     the bound (the sieve's compares, counted from the plain vstar); the
+     instrumented build's shares per part and the SMs' busy share at both
+     main-path shapes (the `h1_phase1 phases` line);
   4. drive one full-width study batch (16 synthetic recordings, 47 channels,
      5 bands, 1537 taps, T_pad 5800, K 39 / 15) through
      eeg_feature_program → audio_h1_program (mismatch audio) →
@@ -256,6 +262,38 @@ def profile_reading(prof, stamps, steps, launches, n_sms, slots, tick_slots):
         / 1e6 / n_sms)
 
 
+def phase1_profile_reading(prof, stamps, n_sms: int, blocks_per_sm: int):
+    """The phase-1 kernel's instrumented run read: the share of thread 0's
+    clock ticks per part (`phase1_cuda.PROFILE_TICKS`), Borůvka rounds per
+    window, and from each window's start/end stamps the share of the
+    launch's span in which each SM held at least one window (`sm_busy`)
+    and the share of its resident-block slots held (`slot_busy`)."""
+    import numpy as np
+
+    from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
+
+    p = prof.double().sum(0).cpu()
+    total = float(p[P1.PROFILE_SLOTS.index("total")])
+    st = stamps.cpu().numpy()
+    t0, t1 = st[:, 0].min(), st[:, 1].max()
+    span = float(t1 - t0)
+    busy = 0.0
+    for sm in np.unique(st[:, 2]):          # union of each SM's windows
+        iv = st[st[:, 2] == sm][:, :2]
+        iv = iv[np.argsort(iv[:, 0])]
+        end = iv[0, 0]
+        for a, b in iv:
+            busy += max(0, b - max(a, end))
+            end = max(end, b)
+    dur = float((st[:, 1] - st[:, 0]).sum())
+    return dict(
+        share={k: float(p[i]) / total for i, k in enumerate(P1.PROFILE_TICKS)},
+        window_us_mean=dur / len(st) / 1e3,
+        forest_rounds_mean=float(p[P1.PROFILE_SLOTS.index("forest_rounds")]) / len(st),
+        span_ms=span / 1e6, sm_busy=busy / span / n_sms,
+        slot_busy=dur / span / (n_sms * blocks_per_sm))
+
+
 def check_kernel(dm, n_pts, n, na_max, step_budget):
     """Kernel vs plain reduction on the same phase-1 operands, phase 1 in
     the main path's window chunks and the kernel once per chunk, as
@@ -401,6 +439,39 @@ def nan_windows(d47, n_windows: int = 256):
     return d.contiguous()
 
 
+def signed_zero_windows(d47, n_windows: int = 256, seed: int = 7):
+    """The first n_windows of the features batch with tied zero weights of
+    both signs: in each window 12 channel pairs, chosen from a seed, at
+    distance −0.0 or +0.0 (alternating, so that either sign comes first in
+    static order), the diagonal −0.0 in every other window, and in half of
+    the windows one channel NaN, +NaN or −NaN by turns."""
+    import numpy as np
+    import torch
+
+    d = d47[:n_windows].clone()
+    B, n = d.shape[0], d.shape[-1]
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, n, (B, 12))
+    j = (i + rng.integers(1, n, (B, 12))) % n
+    sign = (np.arange(12)[None, :] + np.arange(B)[:, None]) % 2 == 0
+    val = torch.as_tensor(np.where(sign, -0.0, 0.0).astype(np.float32), device=d.device)
+    bi = torch.as_tensor(np.repeat(np.arange(B), 12), device=d.device)
+    i = torch.as_tensor(i.reshape(-1), device=d.device)
+    j = torch.as_tensor(j.reshape(-1), device=d.device)
+    d[bi, i, j] = val.reshape(-1)
+    d[bi, j, i] = val.reshape(-1)
+    diag = torch.arange(n, device=d.device)
+    d[0::2, diag, diag] = -0.0
+    nans = torch.as_tensor(np.array([0x7FC00000, 0xFFC00000], np.uint32)
+                           .view(np.float32), device=d.device)
+    c = rng.integers(0, n, B // 2)
+    for w in range(B // 2):
+        d[2 * w + 1, c[w], :] = nans[w % 2]
+        d[2 * w + 1, :, c[w]] = nans[w % 2]
+        d[2 * w + 1, c[w], c[w]] = 0.0
+    return d.contiguous()
+
+
 def same_bits(a, b) -> bool:
     """Equal dtype, shape and bits (floats compared as their int32 bits, so
     NaN equals NaN and −0.0 differs from +0.0)."""
@@ -413,15 +484,20 @@ def same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def phase1_check(dm, n_pts, n, na_max, reps: int = 5):
+def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False):
     """Phase 3b: the phase-1 kernel against the plain `_phase1` on the same
-    inputs on the card, bit for bit on every key.  Times (CUDA events): the
-    launcher (`phase1_cuda`: the stable sort, then the kernel), the sort
-    alone, the kernel alone and the plain version; each one's peak memory
-    above what was allocated before; the bound's two terms: dm (and n_pts)
-    read once plus the dict written once over HBM, and two int32 compares
-    per (edge, vertex) the sieve scans (`sieve_compares` on the plain
-    vstar) at the int32 rate.  The launches made here are not counted."""
+    inputs, bit for bit on every key: `_phase1` on the card, or with
+    against_cpu on a CPU copy of the inputs (the edge order of the CPU's and
+    JAX's stable sort; the card's plain version is then compared with the
+    CPU's too, as a reading).  Also the instrumented build (same bits; the
+    share of thread 0's ticks per part, the SMs' busy share); whether the
+    card's own `torch.sort(stable=True)` gives the kernel's edge order (a
+    reading).  Times (CUDA events): the launcher (`phase1_cuda`, one
+    launch) and the plain version on the card; each one's peak memory above
+    what was allocated before; the bound's two terms: dm (and n_pts) read
+    once plus the dict written once over HBM, and two int32 compares per
+    (edge, vertex) the sieve scans (`sieve_compares` on the plain vstar)
+    at the int32 rate.  The launches made here are not counted."""
     import torch
 
     from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
@@ -431,14 +507,42 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5):
     got = P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)
     per_call = P1.phase1_cuda.launches - launches0
     want = H._phase1(dm, n, 2.0, na_max, n_pts)
+    card_plain_matches_cpu = None
+    if against_cpu:
+        card = want
+        want = H._phase1(dm.cpu(), n, 2.0, na_max, None if n_pts is None else n_pts.cpu())
+        card_plain_matches_cpu = all(same_bits(card[k].cpu(), want[k])
+                                     for k in want if k != "m")
+        got_cmp = {k: v if k == "m" else v.cpu() for k, v in got.items()}
+    else:
+        got_cmp = got
     mismatched = [k for k in want if not (
-        got[k] == want[k] if k == "m" else same_bits(got[k], want[k]))]
+        got_cmp[k] == want[k] if k == "m" else same_bits(got_cmp[k], want[k]))]
     err = 0.0
     for k in ("ew_r", "h0_deaths"):
-        a, b = got[k], want[k]
+        a, b = got_cmp[k], want[k]
         same = (a == b) | (a.isnan() & b.isnan())
         if not bool(same.all()):
             err = max(err, float((a - b).abs()[~same].nan_to_num(nan=float("inf")).max()))
+
+    # the card's stable sort of the static-order weights against the
+    # kernel's order (static index of each rank from its endpoints)
+    B = dm.shape[0]
+    flat = torch.as_tensor(H.static_tables(n)["flat_ut"], device=dm.device)
+    card_order = torch.sort(dm.reshape(B, n * n)[:, flat], dim=-1, stable=True).indices
+    i, j = got["iu_r"].long(), got["ju_r"].long()
+    agree = (card_order == i * n - i * (i + 1) // 2 + j - i - 1).all(-1)
+    has_nan = dm.isnan().flatten(1).any(-1)
+    card_sort_agrees = dict(windows=int(agree.sum()), of=int(B),
+                            nan_windows=int((agree & has_nan).sum()),
+                            of_nan=int(has_nan.sum()))
+
+    prof = P1.phase1_cuda_profiled(dm, n, 2.0, na_max, n_pts)
+    if not all(same_bits(prof[k], got[k]) for k in got if k != "m"):
+        mismatched.append("instrumented build")
+    n_sms = torch.cuda.get_device_properties(dm.device).multi_processor_count
+    phases = phase1_profile_reading(prof["prof"], prof["stamps"], n_sms,
+                                    P1.blocks_per_sm(n, True))
 
     def peak(fn):
         torch.cuda.synchronize()
@@ -450,32 +554,35 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5):
 
     run_kernel = lambda: P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)  # noqa: E731
     run_plain = lambda: H._phase1(dm, n, 2.0, na_max, n_pts)  # noqa: E731
-    ew_r, e_sort = P1.sort_edges(dm, n)
     ms = cuda_ms(run_kernel, reps)
-    sort_ms = cuda_ms(lambda: P1.sort_edges(dm, n), reps)
-    kernel_ms = cuda_ms(lambda: P1._launch(dm, ew_r, e_sort, n_pts, n, 2.0, na_max), reps)
     plain_ms = cuda_ms(run_plain, 2)
     peak_kernel, peak_plain = peak(run_kernel), peak(run_plain)
     P1.phase1_cuda.launches = launches0
 
-    in_bytes = dm.numel() * 4 + (0 if n_pts is None else n_pts.numel() * 4)
+    in_bytes = dm.numel() * 4 + (0 if n_pts is None else n_pts.numel() * n_pts.element_size())
     out_bytes = sum(t.numel() * t.element_size() for t in want.values()
                     if torch.is_tensor(t))
     compares = int(P1.sieve_compares(want["vstar_r"], n).sum())
     plan = P1.kernel_plan(n, na_max)
-    return dict(n=n, windows=int(dm.shape[0]), launches_per_call=per_call,
-                mismatched=mismatched, max_abs_err=err, ms=ms, sort_ms=sort_ms,
-                kernel_ms=kernel_ms,
+    bits = dm.view(torch.int32)
+    off = ~torch.eye(n, dtype=torch.bool, device=dm.device)
+    return dict(n=n, windows=int(B), launches_per_call=per_call,
+                mismatched=mismatched, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, peak_bytes=peak_kernel,
                 plain_peak_bytes=peak_plain, bytes=in_bytes + out_bytes,
                 compares=compares,
                 t_bytes=(in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
                 t_ops=compares / INT32_OPS_PER_S * 1e3,
                 threads=plan["threads"], smem_bytes=plan["smem_bytes"],
-                blocks_per_sm=P1.blocks_per_sm(n),
+                blocks_per_sm=P1.blocks_per_sm(n), phases=phases,
+                against="cpu" if against_cpu else "card",
+                card_sort_agrees=card_sort_agrees,
+                card_plain_matches_cpu=card_plain_matches_cpu,
                 m_cx_mean=float(want["m_cx"].double().mean()),
                 creators_mean=float((want["na_list"] >= 0).sum(1).double().mean()),
-                nan_windows=int(dm.isnan().any(-1).any(-1).sum()))
+                nan_windows=int(dm.isnan().any(-1).any(-1).sum()),
+                signed_zero_edges=(int(((bits == -2**31) & off).sum()),
+                                   int(((bits == 0) & off).sum())))
 
 
 def main_path(batch, mis, cfg, dev):
@@ -1410,10 +1517,11 @@ def main() -> int:
     # ── phase 2: build every kernel, one nvcc each, side by side ──
     t0 = time.perf_counter()
     _, nvcc_s = cuda_build.build_libraries(
-        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()), (IC.SRC, ()),
-         (WC.SRC, ())], verbose=True)
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()),
+         (P1.SRC, P1.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ())], verbose=True)
     HC._load()
     P1._load()
+    P1._load(profile=True)
     IC._load()
     WC._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
@@ -1480,23 +1588,40 @@ def main() -> int:
             "n124": (d124, npts, 124, 96),
             "ragged": (dm24, npts24, 24, 64),
             "tied": (grid_clouds(dev), None, 18, 64),
-            "nan": (nan_windows(d47), None, 47, 128)}.items():
-        r = phase1_check(dm, np_, n, na)
+            "nan": (nan_windows(d47), None, 47, 128),
+            "signed_zero": (signed_zero_windows(d47), None, 47, 128)}.items():
+        r = phase1_check(dm, np_, n, na, against_cpu=name == "signed_zero")
         p1[name] = r
-        print(f"h1_phase1 vs plain {name} (n={n}): {r['windows']} windows in "
-              f"{r['launches_per_call']} launch(es), "
+        print(f"h1_phase1 vs plain {name} (n={n}, plain on the {r['against']}): "
+              f"{r['windows']} windows in {r['launches_per_call']} launch(es), "
               f"mismatched={r['mismatched']}, max_abs_err={r['max_abs_err']}, "
-              f"launcher {r['ms']:.4f} ms (sort {r['sort_ms']:.4f} ms, kernel "
-              f"{r['kernel_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, peak "
+              f"launcher {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, peak "
               f"{r['peak_bytes'] / 1e6:.1f} MB (plain {r['plain_peak_bytes'] / 1e6:.1f}"
               f" MB), bound bytes {r['t_bytes']:.4f} ms / operations "
               f"{r['t_ops']:.4f} ms ({r['compares']} sieve compares), block "
               f"{r['threads']} threads {r['smem_bytes']} B, {r['blocks_per_sm']} "
-              f"blocks/SM, m_cx mean {r['m_cx_mean']:.1f}, creators mean "
-              f"{r['creators_mean']:.2f}, NaN windows {r['nan_windows']}",
-              flush=True)
+              f"blocks/SM, SMs busy {r['phases']['sm_busy']:.3f}, m_cx mean "
+              f"{r['m_cx_mean']:.1f}, creators mean {r['creators_mean']:.2f}, NaN "
+              f"windows {r['nan_windows']}, -0.0 / +0.0 edges "
+              f"{r['signed_zero_edges']}; the card's torch.sort(stable=True) gives "
+              f"the kernel's order in {r['card_sort_agrees']['windows']} of "
+              f"{r['card_sort_agrees']['of']} windows ({r['card_sort_agrees']['nan_windows']}"
+              f" of {r['card_sort_agrees']['of_nan']} with NaN)"
+              + ("" if r["card_plain_matches_cpu"] is None else
+                 f", the card's plain _phase1 equals the CPU's: "
+                 f"{r['card_plain_matches_cpu']}"), flush=True)
+    print("h1_phase1 phases (share of thread 0's clock ticks, instrumented build): "
+          + json.dumps({k: dict(
+              share={p: round(v, 4) for p, v in p1[k]["phases"]["share"].items()},
+              window_us_mean=p1[k]["phases"]["window_us_mean"],
+              forest_rounds_mean=p1[k]["phases"]["forest_rounds_mean"],
+              sm_busy=p1[k]["phases"]["sm_busy"],
+              slot_busy=p1[k]["phases"]["slot_busy"],
+              blocks_per_sm=p1[k]["blocks_per_sm"]) for k in ("n47", "n124")}),
+          flush=True)
     bad_p1 = [k for k, r in p1.items() if r["mismatched"] or r["launches_per_call"] != 1]
-    if bad_p1 or p1["nan"]["nan_windows"] == 0:
+    if bad_p1 or p1["nan"]["nan_windows"] == 0 \
+            or min(p1["signed_zero"]["signed_zero_edges"]) == 0:
         print(f"FAIL: h1_phase1 kernel vs plain phase 1: "
               f"{ {k: (p1[k]['mismatched'], p1[k]['launches_per_call']) for k in bad_p1} }",
               file=sys.stderr)
@@ -1746,23 +1871,25 @@ def main() -> int:
             cli={k: r["phase1_launches"] for k, r in cli_report.items()},
             runner_iir_scan=iir_report["phase1_launches"]),
         max_abs_err=max(r["max_abs_err"] for r in p1.values()),
-        # the main path's two shapes, summed: the launcher (stable sort +
-        # kernel) against the plain _phase1, the function the bound counts
+        # the main path's two shapes, summed: the launcher (one launch)
+        # against the plain _phase1, the function the bound counts
         ms=p1["n47"]["ms"] + p1["n124"]["ms"],
         plain_ms=p1["n47"]["plain_ms"] + p1["n124"]["plain_ms"],
-        kernel_ms=p1["n47"]["kernel_ms"] + p1["n124"]["kernel_ms"],
-        sort_ms=p1["n47"]["sort_ms"] + p1["n124"]["sort_ms"],
         bound_ms=max(p1["n47"]["t_bytes"] + p1["n124"]["t_bytes"],
                      p1["n47"]["t_ops"] + p1["n124"]["t_ops"]),
         bound_by="bytes" if p1["n47"]["t_bytes"] + p1["n124"]["t_bytes"]
         >= p1["n47"]["t_ops"] + p1["n124"]["t_ops"] else "operations",
         library_ms=None,
+        phases={k: dict(share=p1[k]["phases"]["share"],
+                        sm_busy=p1[k]["phases"]["sm_busy"],
+                        blocks_per_sm=p1[k]["blocks_per_sm"])
+                for k in ("n47", "n124")},
         by_case={k: dict(n=r["n"], windows=r["windows"], ms=r["ms"],
-                         sort_ms=r["sort_ms"], kernel_ms=r["kernel_ms"],
                          plain_ms=r["plain_ms"], peak_bytes=r["peak_bytes"],
                          plain_peak_bytes=r["plain_peak_bytes"],
                          bound_ms=max(r["t_bytes"], r["t_ops"]),
                          t_bytes=r["t_bytes"], t_ops=r["t_ops"],
+                         against=r["against"], card_sort_agrees=r["card_sort_agrees"],
                          mismatched=r["mismatched"])
                  for k, r in p1.items()},
         held_against_plain=not any(r["mismatched"] for r in p1.values())),

@@ -170,8 +170,9 @@ def _compact(rk: dict, tree_mat: torch.Tensor, vstar_static: torch.Tensor,
     apparent_r = (vstar_r >= 0) & positive_r
 
     tree_cx = tree_r & in_cx_r
-    h0_deaths = torch.sort(torch.where(tree_cx, ew_r, math.inf),
-                           dim=-1).values[:, : n - 1]
+    # stable, as jnp.sort: tied weights (-0.0 beside +0.0) keep rank order
+    h0_deaths = torch.sort(torch.where(tree_cx, ew_r, math.inf), dim=-1,
+                           stable=True).values[:, : n - 1]
     h0_mask = torch.isfinite(h0_deaths) & (h0_deaths > 0.0)
     n_tree = tree_cx.sum(dim=-1)
 

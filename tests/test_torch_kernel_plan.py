@@ -14,6 +14,7 @@ from chip_smoke import ragged_clouds
 from tda_eeg_audio_tpu.ops import homology_h1 as jh1
 from tda_eeg_audio_tpu_torch.ops import homology_cuda as thc
 from tda_eeg_audio_tpu_torch.ops import homology_h1 as th1
+from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
 
 torch.set_num_threads(2)
 
@@ -139,9 +140,15 @@ def test_profiled_launch_refuses_cpu_and_stays_out_of_entry_points():
     with pytest.raises(ValueError):
         thc.reduce_cuda(*ins, n=24, step_budget=32)
     assert thc.h1_diagrams_cuda.launches == before
-    # only homology_cuda itself names the instrumented build
+    p1_before = P1.phase1_cuda.launches
+    with pytest.raises(ValueError):
+        P1.phase1_cuda_profiled(dm, 24, 2.0, 64, n_pts)
+    assert P1.phase1_cuda.launches == p1_before
+    # each instrumented build is named by its kernel's module only
     pkg = Path(thc.__file__).parent.parent
-    users = [p for p in pkg.rglob("*.py") if p.name != "homology_cuda.py"
-             and re.search(r"reduce_cuda_profiled|H1_PROFILE|PROFILE_FLAGS",
-                           p.read_text())]
+    own = {"homology_cuda.py": r"reduce_cuda_profiled|H1_PROFILE",
+           "phase1_cuda.py": r"phase1_cuda_profiled|H1_PHASE1_PROFILE"}
+    users = [p for p in pkg.rglob("*.py")
+             if re.search("|".join(v for k, v in own.items() if k != p.name)
+                          + r"|PROFILE_FLAGS" * (p.name not in own), p.read_text())]
     assert users == []

@@ -4,17 +4,20 @@
     python3 tools/h1_kernel_profile.py [--reps 3] [--out FILE]
 
 Needs one CUDA card and nvcc.  Builds the reduction kernel
-(`tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu`), its instrumented twin
-(-DH1_PROFILE) and the phase-1 kernel (`csrc/h1_phase1.cu`) side by side.
-On the operands of one 16-recording study batch (3120 EEG windows at
-n = 47, 1200 Takens clouds at n = 124) it
+(`tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu`) and the phase-1 kernel
+(`csrc/h1_phase1.cu`), each with its instrumented twin (-DH1_PROFILE,
+-DH1_PHASE1_PROFILE), side by side.  On the operands of one 16-recording
+study batch (3120 EEG windows at n = 47, 1200 Takens clouds at n = 124) it
   * splits the plain phase 1 (`homology_h1._phase1`) into its parts, each
     timed by CUDA events on the previous part's outputs with its peak
     memory: the stable sort and rank scatter (`_edge_ranks`), the forest
     (`_boruvka_forest`), the sieve (`_sieve`), the compactions
-    (`_compact`); beside them the phase-1 kernel's launcher, its sort and
-    the kernel alone, with peak memory and the kernel held bit for bit
-    against the plain version (chip_smoke.py's `phase1_check`);
+    (`_compact`); beside them the phase-1 kernel (one launch, its sort
+    inside) with peak memory, held bit for bit against the plain version,
+    and its instrumented build's split: the share of thread 0's clock ticks
+    per part (radius and keys, sort, ranks, rank matrix out, forest, sieve,
+    H0 deaths, creators) and the SMs' busy share (chip_smoke.py's
+    `phase1_check`);
   * holds the kernel and its instrumented twin against each other (pair
     keys, steps, overflow: equal) and times the kernel by CUDA events;
   * reads the instrumented build: the share of thread 0's clock ticks per
@@ -82,7 +85,8 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
 
     _, build_s = cuda_build.build_libraries(
-        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ())], verbose=True)
+        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()),
+         (P1.SRC, P1.PROFILE_FLAGS)], verbose=True)
     emit(build_s=build_s)
 
     cfg = DEFAULT_CONFIG
