@@ -101,6 +101,7 @@ def main(argv=None) -> int:
                 bank_fallback=runner._bank_fallback,
                 kernel_launches=HC.h1_diagrams_cuda.launches - launches0,
                 phase1_launches=P1.phase1_cuda.launches - p10,
+                # bucketing + one per width class: 5 a comparison batch
                 sinkhorn_launches=WC.sinkhorn_tiered_cuda.launches - sk0,
                 redone=dict(runner.redo_counts,
                             windows=run_tda.redone - redone0)))

@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels — the H1 reduction and H1 phase 1, each with
-     its instrumented twin, the sosfiltfilt recurrence and the tiered
-     Sinkhorn (six nvcc side by side, sm_90a) — from the sources in the
+  2. build the CUDA kernels — the H1 reduction, H1 phase 1 and the tiered
+     Sinkhorn, each with its instrumented twin, and the sosfiltfilt
+     recurrence (seven nvcc side by side, sm_90a) — from the sources in the
      checkout;
   3. hold the reduction kernel against its plain PyTorch version on the
      card, at the shapes of the main path: the features stage's n = 47 EEG
@@ -25,8 +25,9 @@ Phases, each fatal on failure:
      with their point counts), the ragged n = 24 clouds, tied grid clouds,
      n = 47 windows with NaN (windows past a recording's end), and n = 47
      windows with tied -0.0 / +0.0 weights and ±NaN channels held against
-     `_phase1` on a CPU copy (the CPU's and JAX's edge order); whether the
-     card's own torch.sort(stable=True) gives that order (a reading); timed
+     `_phase1` on a CPU copy (the CPU's and JAX's edge order) and the card's
+     plain `_phase1` held to the CPU's too; whether the plain route and the
+     card's own torch.sort(stable=True) give that order (readings); timed
      (CUDA events: the launcher, the plain version), peak memory of both,
      the bound (the sieve's compares, counted from the plain vstar); the
      instrumented build's shares per part and the SMs' busy share at both
@@ -48,7 +49,9 @@ Phases, each fatal on failure:
      plain version timed, pairs per width class and the bound (at each
      pair's own width) printed, and a rounding line per set (the kernel and
      the plain version against the float64 run, the plain version against
-     itself on its pairs reversed);
+     itself on its pairs reversed); each width class's layout as the library
+     reports it, and the instrumented build's shares per part and SMs' busy
+     share per class (the `sinkhorn phases` line);
   5. hold the CUDA run of a small batch against the CPU run (plain path);
   6. the study runner at full width: 96 synthetic recordings (6 subjects ×
      {slow, fast} × 8) generated into a device-resident store, then
@@ -268,23 +271,12 @@ def phase1_profile_reading(prof, stamps, n_sms: int, blocks_per_sm: int):
     window, and from each window's start/end stamps the share of the
     launch's span in which each SM held at least one window (`sm_busy`)
     and the share of its resident-block slots held (`slot_busy`)."""
-    import numpy as np
-
     from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
 
     p = prof.double().sum(0).cpu()
     total = float(p[P1.PROFILE_SLOTS.index("total")])
     st = stamps.cpu().numpy()
-    t0, t1 = st[:, 0].min(), st[:, 1].max()
-    span = float(t1 - t0)
-    busy = 0.0
-    for sm in np.unique(st[:, 2]):          # union of each SM's windows
-        iv = st[st[:, 2] == sm][:, :2]
-        iv = iv[np.argsort(iv[:, 0])]
-        end = iv[0, 0]
-        for a, b in iv:
-            busy += max(0, b - max(a, end))
-            end = max(end, b)
+    span, busy = sm_busy_ns(st)
     dur = float((st[:, 1] - st[:, 0]).sum())
     return dict(
         share={k: float(p[i]) / total for i, k in enumerate(P1.PROFILE_TICKS)},
@@ -292,6 +284,53 @@ def phase1_profile_reading(prof, stamps, n_sms: int, blocks_per_sm: int):
         forest_rounds_mean=float(p[P1.PROFILE_SLOTS.index("forest_rounds")]) / len(st),
         span_ms=span / 1e6, sm_busy=busy / span / n_sms,
         slot_busy=dur / span / (n_sms * blocks_per_sm))
+
+
+def sm_busy_ns(st):
+    """From (start, end, SM) stamps (ns) of the work items of one launch:
+    the launch's span and the summed time in which each SM held at least one
+    item (the union of each SM's intervals)."""
+    import numpy as np
+
+    span = float(st[:, 1].max() - st[:, 0].min())
+    busy = 0.0
+    for sm in np.unique(st[:, 2]):
+        iv = st[st[:, 2] == sm][:, :2]
+        iv = iv[np.argsort(iv[:, 0])]
+        end = iv[0, 0]
+        for a, b in iv:
+            busy += max(0, b - max(a, end))
+            end = max(end, b)
+    return span, busy
+
+
+def sinkhorn_profile_reading(prof, stamps, widths, n_sms: int):
+    """The Sinkhorn kernel's instrumented run read per width class: the
+    share of the pair group's thread 0 clock ticks per part
+    (`wasserstein_cuda.PROFILE_TICKS`), µs a pair, and from each pair's
+    start/end stamps the share of the class launch's span in which each SM
+    held at least one pair (`sm_busy`).  widths: (N,) class width of each
+    pair."""
+    import numpy as np
+
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
+
+    p = prof.double().cpu().numpy()
+    st = stamps.cpu().numpy()
+    widths = np.asarray(widths)
+    res = {}
+    for w in WC.WIDTHS:
+        sel = widths == w
+        if not sel.any():
+            continue
+        pw = p[sel].sum(0)
+        total = float(pw[WC.PROFILE_SLOTS.index("total")])
+        span, busy = sm_busy_ns(st[sel])
+        res[w] = dict(pairs=int(sel.sum()),
+                      share={k: float(pw[i]) / total for i, k in enumerate(WC.PROFILE_TICKS)},
+                      pair_us_mean=float((st[sel, 1] - st[sel, 0]).mean()) / 1e3,
+                      span_ms=span / 1e6, sm_busy=busy / span / n_sms)
+    return res
 
 
 def check_kernel(dm, n_pts, n, na_max, step_budget):
@@ -506,10 +545,9 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False)
     launches0 = P1.phase1_cuda.launches
     got = P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)
     per_call = P1.phase1_cuda.launches - launches0
-    want = H._phase1(dm, n, 2.0, na_max, n_pts)
+    want = card = H._phase1(dm, n, 2.0, na_max, n_pts)
     card_plain_matches_cpu = None
     if against_cpu:
-        card = want
         want = H._phase1(dm.cpu(), n, 2.0, na_max, None if n_pts is None else n_pts.cpu())
         card_plain_matches_cpu = all(same_bits(card[k].cpu(), want[k])
                                      for k in want if k != "m")
@@ -518,6 +556,8 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False)
         got_cmp = got
     mismatched = [k for k in want if not (
         got_cmp[k] == want[k] if k == "m" else same_bits(got_cmp[k], want[k]))]
+    if card_plain_matches_cpu is False:
+        mismatched.append("the card's plain _phase1 against the CPU's")
     err = 0.0
     for k in ("ew_r", "h0_deaths"):
         a, b = got_cmp[k], want[k]
@@ -525,17 +565,25 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False)
         if not bool(same.all()):
             err = max(err, float((a - b).abs()[~same].nan_to_num(nan=float("inf")).max()))
 
-    # the card's stable sort of the static-order weights against the
-    # kernel's order (static index of each rank from its endpoints)
+    # the edge order of the card's plain _phase1 and of the card's own
+    # stable sort of the static-order weights against the kernel's (static
+    # index of each rank from its endpoints)
     B = dm.shape[0]
     flat = torch.as_tensor(H.static_tables(n)["flat_ut"], device=dm.device)
     card_order = torch.sort(dm.reshape(B, n * n)[:, flat], dim=-1, stable=True).indices
     i, j = got["iu_r"].long(), got["ju_r"].long()
-    agree = (card_order == i * n - i * (i + 1) // 2 + j - i - 1).all(-1)
     has_nan = dm.isnan().flatten(1).any(-1)
-    card_sort_agrees = dict(windows=int(agree.sum()), of=int(B),
-                            nan_windows=int((agree & has_nan).sum()),
-                            of_nan=int(has_nan.sum()))
+    neg_nan = (dm.isnan() & (dm.view(torch.int32) < 0)).flatten(1).any(-1)
+
+    def agreement(agree):
+        return dict(windows=int(agree.sum()), of=int(B),
+                    nan_windows=int((agree & has_nan).sum()), of_nan=int(has_nan.sum()),
+                    neg_nan_windows=int((agree & neg_nan).sum()),
+                    of_neg_nan=int(neg_nan.sum()))
+
+    card_sort_agrees = dict(
+        plain=agreement(((card["iu_r"] == got["iu_r"]) & (card["ju_r"] == got["ju_r"])).all(-1)),
+        torch_sort=agreement((card_order == i * n - i * (i + 1) // 2 + j - i - 1).all(-1)))
 
     prof = P1.phase1_cuda_profiled(dm, n, 2.0, na_max, n_pts)
     if not all(same_bits(prof[k], got[k]) for k in got if k != "m"):
@@ -823,15 +871,18 @@ def sinkhorn_kernel_check(main_pairs, dev, clock_hz):
     SINKHORN_F64_RTOL of a float64 run of the ladder (`sinkhorn_rounding`);
     the kernel path once under `torch.cuda.set_sync_debug_mode("error")`,
     which raises at any host synchronisation; timings (also of each width
-    class's pairs alone) and the bound.  The launches made here are not
-    counted."""
+    class's pairs alone) and the bound; each width class's layout as the
+    library reports it (checked against `kernel_plan` at load), and the
+    instrumented build's shares per part and SMs' busy share per class.
+    The launches made here are not counted."""
     import torch
 
     from tda_eeg_audio_tpu_torch.models import programs as P
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
 
     launches0 = WC.sinkhorn_tiered_cuda.launches
-    res = {}
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {"layout": WC.layout_report(), "layout_instrumented": WC.layout_report(True)}
     for name, pairs in (("main", main_pairs), ("classes", sinkhorn_class_pairs(dev))):
         before = WC.sinkhorn_tiered_cuda.launches
         got = P._wass_sinkhorn_tiered(*pairs)
@@ -851,7 +902,10 @@ def sinkhorn_kernel_check(main_pairs, dev, clock_hz):
             if idx.numel():
                 sub = [x[idx] for x in pairs]
                 ms_by_width[w] = cuda_ms(lambda: P._wass_sinkhorn_tiered(*sub), reps=10)
+        prof_out, prof, stamps = WC.sinkhorn_tiered_cuda_profiled(*pairs)
         res[name] = dict(
+            phases=sinkhorn_profile_reading(prof, stamps, widths.numpy(), n_sms),
+            instrumented_max_abs_diff=float((prof_out.double().cpu() - g).abs().max()),
             pairs=int(g.numel()), launches_per_call=per_call,
             finite=bool(torch.isfinite(g).all()),
             within=bool((err <= SINKHORN_RTOL * r.abs()).all()),
@@ -1518,12 +1572,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _, nvcc_s = cuda_build.build_libraries(
         [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()),
-         (P1.SRC, P1.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ())], verbose=True)
+         (P1.SRC, P1.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ()),
+         (WC.SRC, WC.PROFILE_FLAGS)], verbose=True)
     HC._load()
     P1._load()
     P1._load(profile=True)
     IC._load()
     WC._load()
+    WC._load(profile=True)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{nvcc_s if nvcc_s is not None else 'cached'})", flush=True)
 
@@ -1603,10 +1659,13 @@ def main() -> int:
               f"blocks/SM, SMs busy {r['phases']['sm_busy']:.3f}, m_cx mean "
               f"{r['m_cx_mean']:.1f}, creators mean {r['creators_mean']:.2f}, NaN "
               f"windows {r['nan_windows']}, -0.0 / +0.0 edges "
-              f"{r['signed_zero_edges']}; the card's torch.sort(stable=True) gives "
-              f"the kernel's order in {r['card_sort_agrees']['windows']} of "
-              f"{r['card_sort_agrees']['of']} windows ({r['card_sort_agrees']['nan_windows']}"
-              f" of {r['card_sort_agrees']['of_nan']} with NaN)"
+              f"{r['signed_zero_edges']}; the kernel's edge order is the card's "
+              + "; ".join(f"{route} in {a['windows']} of {a['of']} windows "
+                          f"({a['nan_windows']} of {a['of_nan']} with NaN, "
+                          f"{a['neg_nan_windows']} of {a['of_neg_nan']} with -NaN)"
+                          for route, a in (("plain _phase1", r['card_sort_agrees']['plain']),
+                                           ("torch.sort(stable=True)",
+                                            r['card_sort_agrees']['torch_sort'])))
               + ("" if r["card_plain_matches_cpu"] is None else
                  f", the card's plain _phase1 equals the CPU's: "
                  f"{r['card_plain_matches_cpu']}"), flush=True)
@@ -1715,9 +1774,19 @@ def main() -> int:
               f"within {r['within_float64']}): " + json.dumps(r["rounding"]), flush=True)
     print(f"sinkhorn_tiered under set_sync_debug_mode('error'): no host "
           f"synchronisation ({sk['no_host_sync']})", flush=True)
+    print("sinkhorn_tiered layout by width class, as the library reports it "
+          "(blocks/SM by design; occupancy = what the card's calculator allows): "
+          + json.dumps(sk["layout"]), flush=True)
+    print("sinkhorn phases (share of the pair group's thread 0 clock ticks per "
+          "part, instrumented build; pair_us, SMs busy per class launch): "
+          + json.dumps({k: dict(sk[k]["phases"],
+                                instrumented_max_abs_diff=sk[k]["instrumented_max_abs_diff"])
+                        for k in ("main", "classes")}), flush=True)
+    # each call: one bucketing launch, then one launch per width class
     bad_sk = [k for k in ("main", "classes") if not (
         sk[k]["within"] and sk[k]["within_float64"] and sk[k]["finite"]
-        and sk[k]["zeros_exact"])]
+        and sk[k]["zeros_exact"]
+        and sk[k]["launches_per_call"] == WC.launches_per_call(WC.MAX_WIDTH))]
     if bad_sk or sk["main"]["pairs"] != 2 * B_REC * 5 * K_CMP \
             or len(sk["classes"]["kernel_widths"]) != len(WC.WIDTHS):
         print(f"FAIL: sinkhorn_tiered kernel vs plain: {bad_sk}, pairs "
@@ -1940,6 +2009,7 @@ def main() -> int:
                         max_rel_err=sk[k]["max_rel_err"],
                         max_rel_err_vs_float64=sk[k]["rounding"]["kernel_vs_float64"])
                 for k in ("main", "classes")},
+        layout=sk["layout"], phases=sk["main"]["phases"],
         no_host_sync=sk["no_host_sync"], held_against_plain=True)]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

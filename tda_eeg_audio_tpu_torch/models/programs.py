@@ -234,7 +234,8 @@ def _wass_chunk_tiered(bb1, dd1, mm1, bb2, dd2, mm2):
 def _wass_sinkhorn_tiered(b1, d1, m1, b2, d2, m2):
     """Tiered Sinkhorn cost of (N, K) padded diagram pairs → (N,).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
-    (`ops/wasserstein_cuda.py`, one launch per width class, no host
+    (`ops/wasserstein_cuda.py`: one bucketing launch, then one launch per
+    width class, five at the comparison's pad width; no host
     synchronisation) or raises — there is no fallback."""
     if b1.device.type == "cpu":
         return wass_sinkhorn_tiered_plain(b1, d1, m1, b2, d2, m2)

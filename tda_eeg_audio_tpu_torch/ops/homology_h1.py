@@ -117,7 +117,11 @@ def _edge_ranks(dm: torch.Tensor, n: int, thresh: float, n_pts=None):
                                torch.where(torch.isfinite(r_enc), r_enc, thresh32))
 
     w = dm.reshape(B, n * n)[:, flat_ut]                              # (B, m)
-    ew_r, e_sort = torch.sort(w, dim=-1, stable=True)                 # by rank
+    # every NaN sorts as the one +NaN, last on every device (the card's sort
+    # puts a NaN with its sign bit first); ew_r keeps the input's bits
+    key = torch.where(w.isnan(), math.nan, w)
+    e_sort = torch.sort(key, dim=-1, stable=True).indices             # by rank
+    ew_r = w.gather(1, e_sort)
     iota_m = torch.arange(m, device=dev)
     e_rank = torch.empty_like(e_sort).scatter_(1, e_sort, iota_m.expand(B, m))
     m_cx = (ew_r <= eff_thresh[:, None]).sum(dim=-1)

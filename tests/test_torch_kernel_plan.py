@@ -15,6 +15,7 @@ from tda_eeg_audio_tpu.ops import homology_h1 as jh1
 from tda_eeg_audio_tpu_torch.ops import homology_cuda as thc
 from tda_eeg_audio_tpu_torch.ops import homology_h1 as th1
 from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
+from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as twc
 
 torch.set_num_threads(2)
 
@@ -144,10 +145,16 @@ def test_profiled_launch_refuses_cpu_and_stays_out_of_entry_points():
     with pytest.raises(ValueError):
         P1.phase1_cuda_profiled(dm, 24, 2.0, 64, n_pts)
     assert P1.phase1_cuda.launches == p1_before
+    sk_before = twc.sinkhorn_tiered_cuda.launches
+    bars = torch.zeros((2, 16)), torch.ones((2, 16)), torch.ones((2, 16), dtype=torch.bool)
+    with pytest.raises(ValueError):
+        twc.sinkhorn_tiered_cuda_profiled(*bars, *bars)
+    assert twc.sinkhorn_tiered_cuda.launches == sk_before
     # each instrumented build is named by its kernel's module only
     pkg = Path(thc.__file__).parent.parent
     own = {"homology_cuda.py": r"reduce_cuda_profiled|H1_PROFILE",
-           "phase1_cuda.py": r"phase1_cuda_profiled|H1_PHASE1_PROFILE"}
+           "phase1_cuda.py": r"phase1_cuda_profiled|H1_PHASE1_PROFILE",
+           "wasserstein_cuda.py": r"sinkhorn_tiered_cuda_profiled|SINKHORN_PROFILE"}
     users = [p for p in pkg.rglob("*.py")
              if re.search("|".join(v for k, v in own.items() if k != p.name)
                           + r"|PROFILE_FLAGS" * (p.name not in own), p.read_text())]

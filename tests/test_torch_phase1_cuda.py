@@ -4,6 +4,8 @@ kernel's sort (a numpy model of its key and bitonic passes gives JAX's and
 the plain version's edge order) and of its forest algorithm, and the count
 its bound rests on.  The kernel itself runs on the card only (the
 `cuda`-marked cases here, chip_smoke.py's phase 3b)."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -406,6 +408,48 @@ def test_phase1_signed_zero_bits_match_jax():
         np.testing.assert_array_equal(a, b, err_msg=k)
 
 
+def _sort_nan_sign_first(x, dim=-1, stable=False):
+    """A stable sort that puts a NaN with its sign bit set first, the rest in
+    the CPU's order: what the card's `torch.sort(stable=True)` does."""
+    neg_nan = x.isnan() & (x.view(torch.int32) < 0)
+    first = _cpu_sort(torch.where(neg_nan, -math.inf, x), dim=dim, stable=True).indices
+    group = neg_nan.gather(dim, first).logical_not().to(torch.uint8)
+    second = _cpu_sort(group, dim=dim, stable=True).indices
+    idx = first.gather(dim, second)
+    return torch.return_types.sort((x.gather(dim, idx), idx))
+
+
+_cpu_sort = torch.sort
+
+
+def test_plain_sort_keeps_bits_and_jax_order_whatever_the_nan_sign(monkeypatch):
+    """On windows with ±0.0 ties and +NaN / −NaN channels (chip_smoke.py's
+    `signed_zero` case), the plain `_edge_ranks` gives JAX's
+    `_sort_with_payload` order and ew_r keeps the input's bits (−NaN stays
+    0xFFC00000, −0.0 stays −0.0) — also under a sort that puts a NaN with
+    its sign bit first, as the card's does: the plain version sorts a key
+    with every NaN made the one +NaN."""
+    d = signed_zero_windows(torch.as_tensor(_eeg_like(np.random.default_rng(4),
+                                                      16, 47, 47)), 16)
+    iu, ju = np.triu_indices(47, 1)
+    w = d.numpy()[:, iu, ju]
+    assert (w.view(np.uint32) == 0xFFC00000).any() and (w.view(np.uint32) == 0x7FC00000).any()
+    iota = jnp.broadcast_to(jnp.arange(w.shape[1], dtype=jnp.int32), w.shape)
+    _, order_j = jh1._sort_with_payload(jnp.asarray(w), iota)
+    for sort in (_cpu_sort, _sort_nan_sign_first):
+        monkeypatch.setattr(torch, "sort", sort)
+        rk = th1._edge_ranks(d, 47, 2.0)
+        monkeypatch.setattr(torch, "sort", _cpu_sort)
+        e_sort = rk["e_sort"].numpy()
+        np.testing.assert_array_equal(e_sort, np.asarray(order_j), err_msg=sort.__name__)
+        bits = rk["ew_r"].numpy().view(np.uint32)
+        np.testing.assert_array_equal(bits, np.take_along_axis(w, e_sort, 1).view(np.uint32))
+        assert (bits == 0xFFC00000).any() and (bits == 0x80000000).any()
+    # the card-like sort does put −NaN first on the raw weights
+    raw = _sort_nan_sign_first(torch.as_tensor(w)).indices.numpy()
+    assert not np.array_equal(raw, np.asarray(order_j))
+
+
 def _both_below(x, y, rr):
     """`csrc/h1_phase1.cu::both_below` on uint32 arrays."""
     m32 = np.uint32(0x80008000)
@@ -527,6 +571,27 @@ def test_kernel_matches_cpu_phase1_on_card(case):
         if a.is_floating_point():
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b), (case, k)
+
+
+@pytest.mark.cuda
+def test_plain_phase1_on_card_equals_cpu():
+    """On a CUDA card: the plain `_phase1` on the card equals the CPU's bit
+    for bit on every key of chip_smoke.py's `signed_zero` windows (±0.0
+    ties, −0.0 diagonals, +NaN and −NaN channels): its edge order does not
+    depend on the device's sort."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
+    d = signed_zero_windows(torch.as_tensor(_eeg_like(np.random.default_rng(12),
+                                                      256, 47, 47)))
+    want = th1._phase1(d, 47, 2.0, 128)
+    got = th1._phase1(d.to("cuda"), 47, 2.0, 128)
+    assert got["m"] == want["m"]
+    for k in PHASE1_KEYS:
+        a, b = got[k].cpu(), want[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
 
 
 @pytest.mark.cuda
