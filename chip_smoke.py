@@ -92,6 +92,20 @@ Phases, each fatal on failure:
      and subjects equal bit for bit; in the same two ranks
      `parallel.sharding.sharded_stats_step` equal to this process's
      Wilcoxon + BH-FDR on the whole array;
+ 12. the knobs of `tuning.py` in force and the source of each; then
+     `bench_torch.eeg_throughput` at the bench's shape (64 recordings × 5
+     bands × 40 windows, T_pad 5800; one warm pass, one timed pass) with its
+     JSON line, failing unless phase-1 launches equal reduction launches
+     and every recording that did not overflow has finite aggregates, and
+     the timed pass's first 2 recordings held against `eeg_feature_program`
+     on the CPU (phase 5's tolerances, overflow flags equal); then, only if
+     tuning.json departs from the defaults, the runner over phase 6's 96
+     recordings at the defaults and at the tuned knobs, the comparison's
+     parts timed by its spans (per batch): X and the detailed rows (bit for
+     bit expected; else within phase 5's tolerances, the largest difference
+     printed) and equal overflow windows and deviants redone.
+     Phases 6, 7, 8 and 10 run at the defaults (batch 16, the bank on,
+     arena 128) whatever tuning.json holds;
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package, nor scikit-learn or
 matplotlib.
@@ -111,6 +125,10 @@ import time
 from pathlib import Path
 
 B_REC = 16          # recordings per batch
+# the features stage's H1 arena width: the runner phases run at the knobs'
+# defaults (B_REC, the bank on, NA_FEAT), whatever tuning.json holds, so
+# that their launch counts stay those of the default configuration
+NA_FEAT = 128
 K_FEAT = 39         # features-stage windows per band
 K_CMP = 15          # comparison windows per band
 N_WIN_MAX = 90
@@ -928,10 +946,14 @@ def sinkhorn_kernel_check(main_pairs, dev, clock_hz):
     return res
 
 
-def runner_phase(store, cfg, **runner_kw):
-    """The whole study on the store through the runner's three entry points,
-    each stage between two device synchronisations, the kernel's launch
-    count zeroed just before and read per stage.  Returns (report, problems)."""
+def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
+                 feature_na_max=NA_FEAT, comparison_spans=False):
+    """The whole study on the store through the runner's three entry points
+    at the given knobs, each stage between two device synchronisations, the
+    kernel's launch count zeroed just before and read per stage; with
+    `comparison_spans`, the comparison stage's parts timed by its own spans
+    (summed over its batches).  Returns (report, problems, X, the
+    comparison's detailed rows)."""
     import numpy as np
 
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
@@ -940,12 +962,14 @@ def runner_phase(store, cfg, **runner_kw):
     from tda_eeg_audio_tpu_torch.ops.iir_cuda import sosfiltfilt_bank_cuda
     from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
+    from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     n_rec = len(store)
     secs, launches, p1_launches, iir_launches, sk_launches = {}, {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as td:
-        runner = StudyRunner(store, cfg, eeg_batch=B_REC, eeg_bank=True,
-                             results_dir=td, verbose=False, **runner_kw)
+        runner = StudyRunner(store, cfg, eeg_batch=eeg_batch,
+                             eeg_bank=eeg_bank, feature_na_max=feature_na_max,
+                             results_dir=td, verbose=False)
         redone0 = run_tda.redone
         h1_diagrams_cuda.launches = 0
         phase1_cuda.launches = 0
@@ -967,8 +991,10 @@ def runner_phase(store, cfg, **runner_kw):
 
         X, y, subjects, filenames, meta = stage(
             "features", runner.compute_feature_dataset)
-        cmp_out = stage("comparison",
-                        lambda: runner.run_comparison(n_permutations=1000))
+        spans = timed_spans() if comparison_spans else contextlib.nullcontext()
+        with spans as parts:
+            cmp_out = stage("comparison",
+                            lambda: runner.run_comparison(n_permutations=1000))
         ctl = stage("control", runner.run_control)
         total = h1_diagrams_cuda.launches
         total_p1 = phase1_cuda.launches
@@ -981,7 +1007,7 @@ def runner_phase(store, cfg, **runner_kw):
         problems.append(f"X shape {X.shape} or not finite")
     if len(rows) != n_rec * 5:
         problems.append(f"{len(rows)} detailed rows, expected {n_rec * 5}")
-    n_batches = -(-n_rec // B_REC)
+    n_batches = -(-n_rec // eeg_batch) if eeg_bank else 0
     if runner._bank_served != n_batches or runner._bank_fallback != 0:
         problems.append(f"bank served {runner._bank_served} / fallback "
                         f"{runner._bank_fallback}, expected {n_batches} / 0")
@@ -1015,7 +1041,9 @@ def runner_phase(store, cfg, **runner_kw):
               "matched_vs_mismatched.json"}
     if set(artifacts) != expect:
         problems.append(f"artifacts {artifacts}")
-    report = dict(recordings=n_rec, filter_impl=cfg.filter_impl, seconds=secs,
+    report = dict(recordings=n_rec, filter_impl=cfg.filter_impl,
+                  knobs=dict(eeg_batch=eeg_batch, eeg_bank=eeg_bank,
+                             feature_na_max=feature_na_max), seconds=secs,
                   launches=launches, launches_total=total,
                   phase1_launches=p1_launches, phase1_launches_total=total_p1,
                   sosfiltfilt_launches=iir_launches,
@@ -1032,10 +1060,12 @@ def runner_phase(store, cfg, **runner_kw):
                   w_h1_p={b: cmp_out["band_results"][b]["wass_h1_p"]
                           for b in BAND_NAMES},
                   control_p={b: ctl[b]["p"] for b in BAND_NAMES})
-    return report, problems, X
+    if comparison_spans:
+        report["comparison_spans_ms"] = dict(parts)
+    return report, problems, X, rows
 
 
-def bank_vs_in_call(store, cfg, **runner_kw):
+def bank_vs_in_call(store, cfg):
     """One batch (the store's first B_REC recordings) through the runner's
     fused pass with the EEG side from the bank (`comparison_from_bank`) and
     computed in the call (`comparison_program`).  Returns the mismatched
@@ -1046,17 +1076,27 @@ def bank_vs_in_call(store, cfg, **runner_kw):
     sub = DeviceStore(store.eeg[:B_REC], store.audio[:B_REC], store.ns_e[:B_REC],
                       store.ns_a[:B_REC], store.metas[:B_REC], store.index[:B_REC])
     banked = StudyRunner(sub, cfg, eeg_batch=B_REC, eeg_bank=True, verbose=False,
-                         **runner_kw)
+                         feature_na_max=NA_FEAT)
     banked.compute_feature_dataset()
     rows_b = banked._fused_rows()
     rows_c = StudyRunner(sub, cfg, eeg_batch=B_REC, eeg_bank=False,
-                         verbose=False, **runner_kw)._fused_rows()
+                         verbose=False, feature_na_max=NA_FEAT)._fused_rows()
     if banked._bank_served != 1 or banked._bank_fallback != 0:
         return ["bank did not serve the batch"], {}
-    if len(rows_b) != len(rows_c) or len(rows_b) != B_REC * 5:
+    if len(rows_b) != B_REC * 5:
         return [f"row counts {len(rows_b)} / {len(rows_c)}"], {}
+    return rows_ratio(rows_b, rows_c)
+
+
+def rows_ratio(rows, ref):
+    """Comparison rows against reference rows: the mismatched fields (other
+    integers or strings, or floats beyond phase 5's tolerances: the tiered
+    Sinkhorn's rtol 2e-4, else 1e-4) and each float field's largest error /
+    tolerance."""
+    if len(rows) != len(ref):
+        return [f"row counts {len(rows)} / {len(ref)}"], {}
     bad, ratio = set(), {}
-    for rb, rc in zip(rows_b, rows_c):
+    for rb, rc in zip(rows, ref):
         for k, v in rc.items():
             if isinstance(v, float):
                 rtol = 2e-4 if k in ("wasserstein_h1", "w_mismatched") else 1e-4
@@ -1066,6 +1106,80 @@ def bank_vs_in_call(store, cfg, **runner_kw):
             elif rb[k] != v:
                 bad.add(k)
     return sorted(bad), ratio
+
+
+def throughput_phase(dev):
+    """Phase 12's pass: `bench_torch.eeg_throughput` at the bench's shape
+    (64 recordings × 5 bands × 40 windows, one warm and one timed pass),
+    then the timed pass's first 2 recordings through `eeg_feature_program`
+    on the CPU: agg within phase 5's tolerances, overflow flags equal.
+    Returns (the bench's line, the CPU check, problems)."""
+    import numpy as np
+
+    import bench_torch
+    from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
+    from tda_eeg_audio_tpu_torch.models.programs import eeg_feature_program
+
+    line, last = bench_torch.eeg_throughput(repeats=1, device=dev)
+    n, K = 2, line["detail"]["K"]
+    agg, ovf = eeg_feature_program(*(last[k][:n].cpu() for k in (
+        "eeg", "ns", "use_idx", "use_mask")), DEFAULT_CONFIG, bench_torch.N_WIN,
+        K, device="cpu")
+    got = last["agg"][:n].cpu().numpy()
+    cpu = dict(recordings=n, agg_ratio=float_ratio(got, agg.numpy(), 1e-4),
+               agg_max_abs_diff=float(np.nanmax(np.abs(got - agg.numpy()))),
+               ovf_equal=bool((last["ovf"][:n].cpu() == ovf).all()))
+    problems = []
+    if not line["ok"] or line["kernel_launches"] <= 0 \
+            or line["phase1_launches"] != line["kernel_launches"]:
+        problems.append(f"ok {line['ok']}, phase-1 launches "
+                        f"{line['phase1_launches']}, reduction launches "
+                        f"{line['kernel_launches']}")
+    if line["n_windows"] != 64 * 5 * 40:
+        problems.append(f"{line['n_windows']} windows")
+    if cpu["agg_ratio"] > 1.0 or not cpu["ovf_equal"]:
+        problems.append(f"card vs CPU {cpu}")
+    return line, cpu, problems
+
+
+def knobs_vs_defaults(store, cfg, knobs):
+    """Phase 12's last part: the runner over the store at the defaults and
+    at `knobs`, each with the comparison's spans timed.  X and the detailed
+    rows must agree (bit for bit expected: every window's and pair's
+    arithmetic is independent of the batch; else within phase 5's
+    tolerances) and the windows and deviants redone must be equal.
+    Returns (readout, {"default": report, "tuned": report}, problems)."""
+    import numpy as np
+
+    runs, problems = {}, []
+    for name, kw in (("default", {}), ("tuned", knobs)):
+        report, prob, X, rows = runner_phase(store, cfg, comparison_spans=True, **kw)
+        runs[name] = dict(report=report, X=X, rows=rows)
+        problems += [f"{name}: {p}" for p in prob]
+    t, d = runs["tuned"], runs["default"]
+    bad, ratio = rows_ratio(t["rows"], d["rows"])
+    x_ratio = float_ratio(t["X"], d["X"], 1e-4)
+    redo = {k: (t["report"][k], d["report"][k]) for k in (
+        "overflow_windows_redone", "overflow_recordings_redone",
+        "control_deviants_redone")}
+    batches = {k: -(-len(store) // r["report"]["knobs"]["eeg_batch"])
+               for k, r in runs.items()}
+    readout = dict(
+        knobs=knobs, X_bit_for_bit=bool(np.array_equal(t["X"], d["X"])),
+        rows_equal=t["rows"] == d["rows"],
+        X_max_abs_diff=float(np.abs(t["X"] - d["X"]).max()), X_ratio=x_ratio,
+        rows_mismatched=bad, rows_ratio={k: round(v, 4) for k, v in ratio.items()},
+        redo_tuned_vs_default=redo,
+        seconds={k: r["report"]["seconds"] for k, r in runs.items()},
+        comparison_batches=batches,
+        comparison_spans_ms_per_batch={
+            k: {s: ms / batches[k] for s, ms in r["report"]["comparison_spans_ms"].items()}
+            for k, r in runs.items()},
+        launches={k: r["report"]["launches"] for k, r in runs.items()},
+        sinkhorn_launches={k: r["report"]["sinkhorn_launches"] for k, r in runs.items()})
+    if bad or x_ratio > 1.0 or any(a != b for a, b in redo.values()):
+        problems.append(f"rows {bad}, X ratio {x_ratio}, redo {redo}")
+    return readout, {k: r["report"] for k, r in runs.items()}, problems
 
 
 def overflow_redo_check(d47, thresh: float, na: int = 8):
@@ -1815,7 +1929,7 @@ def main() -> int:
     cut = 10_937
     store.audio[0, store.ns_a[0] - cut:store.ns_a[0]] = 0.0
     store.ns_a[0] -= cut
-    report, problems, x_fir = runner_phase(store, cfg)
+    report, problems, x_fir, _ = runner_phase(store, cfg)
     runner_launches = report["launches_total"]
     print(f"runner ({report['recordings']} recordings, store {store_gb:.2f} GB "
           f"generated on the card in {ingest_ms / 1e3:.1f} s): "
@@ -1884,7 +1998,7 @@ def main() -> int:
               f"{iir['ragged']['scipy_max_rel_err']}", file=sys.stderr)
         return 1
     cfg_iir = dataclasses.replace(cfg, filter_impl="iir_scan")
-    iir_report, problems, x_iir = runner_phase(store, cfg_iir)
+    iir_report, problems, x_iir, _ = runner_phase(store, cfg_iir)
     print("runner iir_scan: " + json.dumps(iir_report), flush=True)
     parity = fir_vs_iir(x_fir, x_iir)
     print("FIR vs IIR X (tests/test_fir_parity.py gates: r > 0.995, mean total "
@@ -1894,7 +2008,6 @@ def main() -> int:
         print(f"FAIL: iir_scan runner: {problems}, parity ok {parity['ok']}",
               file=sys.stderr)
         return 1
-    del store
 
     # ── phase 11: two processes on the card ──
     dist_report, problems = distributed_phase()
@@ -1902,6 +2015,37 @@ def main() -> int:
     if problems:
         print(f"FAIL: two processes: {problems}", file=sys.stderr)
         return 1
+
+    # ── phase 12: the knobs, the EEG feature pass in windows/s, and the
+    # runner at the tuned knobs against the defaults ──
+    from tda_eeg_audio_tpu_torch import tuning
+
+    print("knobs in force (tuning.py): " + json.dumps(
+        {k: dict(value=v, source=tuning.SOURCE[k]) for k, v in tuning.KNOBS.items()}),
+        flush=True)
+    HC.h1_diagrams_cuda.launches = 0
+    P1.phase1_cuda.launches = 0
+    thr_line, thr_cpu, problems = throughput_phase(dev)
+    thr_launches = HC.h1_diagrams_cuda.launches
+    thr_p1_launches = P1.phase1_cuda.launches
+    print("eeg throughput: " + json.dumps(thr_line), flush=True)
+    print("eeg throughput, first 2 recordings card vs CPU (agg rtol 1e-4, "
+          "atol 1e-5; overflow flags equal): " + json.dumps(thr_cpu), flush=True)
+    if problems:
+        print(f"FAIL: eeg throughput: {problems}", file=sys.stderr)
+        return 1
+    knob_reports = None
+    if tuning.KNOBS != tuning._DEFAULTS:
+        readout, knob_reports, problems = knobs_vs_defaults(store, cfg, tuning.KNOBS)
+        print("runner at the tuned knobs vs the defaults: " + json.dumps(readout),
+              flush=True)
+        if problems:
+            print(f"FAIL: tuned knobs vs defaults: {problems}", file=sys.stderr)
+            return 1
+    else:
+        print("runner at the tuned knobs vs the defaults: not run, tuning.json "
+              "holds the defaults", flush=True)
+    del store
 
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
@@ -1912,10 +2056,14 @@ def main() -> int:
         source="tda_eeg_audio_tpu_torch/csrc/h1_reduce.cu",
         replaces="tda_eeg_audio_tpu/ops/homology_pallas.py:190",
         launches=total + runner_launches + cli_launches
-        + iir_report["launches_total"],
+        + iir_report["launches_total"] + thr_launches
+        + sum(r["launches_total"] for r in (knob_reports or {}).values()),
         launches_by_path=dict(one_batch=launches, runner=report["launches"],
                               cli={k: r["launches"] for k, r in cli_report.items()},
-                              runner_iir_scan=iir_report["launches"]),
+                              runner_iir_scan=iir_report["launches"],
+                              eeg_throughput=thr_launches,
+                              runner_knobs={k: r["launches"] for k, r in
+                                            (knob_reports or {}).items()}),
         max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
         ms=r47["ms"] + r124["ms"], plain_ms=r47["plain_ms"] + r124["plain_ms"],
         bound_ms=max(t_bytes, t_ops),
@@ -1934,11 +2082,15 @@ def main() -> int:
         replaces="tda_eeg_audio_tpu/ops/homology_h1.py:181 _phase1 (XLA, not Pallas)",
         launches=p1_total + report["phase1_launches_total"]
         + sum(r["phase1_launches"] for r in cli_report.values())
-        + iir_report["phase1_launches_total"],
+        + iir_report["phase1_launches_total"] + thr_p1_launches
+        + sum(r["phase1_launches_total"] for r in (knob_reports or {}).values()),
         launches_by_path=dict(
             one_batch=p1_launches, runner=report["phase1_launches"],
             cli={k: r["phase1_launches"] for k, r in cli_report.items()},
-            runner_iir_scan=iir_report["phase1_launches"]),
+            runner_iir_scan=iir_report["phase1_launches"],
+            eeg_throughput=thr_p1_launches,
+            runner_knobs={k: r["phase1_launches"] for k, r in
+                          (knob_reports or {}).items()}),
         max_abs_err=max(r["max_abs_err"] for r in p1.values()),
         # the main path's two shapes, summed: the launcher (one launch)
         # against the plain _phase1, the function the bound counts
@@ -1990,11 +2142,14 @@ def main() -> int:
                  "wasserstein.py:134 sinkhorn_cost_stab (XLA, not Pallas)",
         launches=sk_total + report["sinkhorn_launches_total"]
         + sum(r["sinkhorn_launches"] for r in cli_report.values())
-        + iir_report["sinkhorn_launches_total"],
+        + iir_report["sinkhorn_launches_total"]
+        + sum(r["sinkhorn_launches_total"] for r in (knob_reports or {}).values()),
         launches_by_path=dict(
             one_batch=sk_launches, runner=report["sinkhorn_launches"],
             cli={k: r["sinkhorn_launches"] for k, r in cli_report.items()},
-            runner_iir_scan=iir_report["sinkhorn_launches"]),
+            runner_iir_scan=iir_report["sinkhorn_launches"],
+            runner_knobs={k: r["sinkhorn_launches"] for k, r in
+                          (knob_reports or {}).items()}),
         max_abs_err=max(sk[k]["max_abs_err"] for k in ("main", "classes")),
         max_rel_err=max(sk[k]["max_rel_err"] for k in ("main", "classes")),
         ms=sk["main"]["ms"], plain_ms=sk["main"]["plain_ms"],

@@ -42,6 +42,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import tuning
+
 
 def _build_runner(args):
     import dataclasses
@@ -100,8 +102,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--results", default="results")
     ap.add_argument("--out", default=None,
                     help="artifact dir for preprocess/graphs stages")
-    ap.add_argument("--batch", type=int, default=16,
-                    help="recordings per device batch")
+    ap.add_argument("--batch", type=int, default=tuning.EEG_BATCH,
+                    help="recordings per device batch (default: tuning.py)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     # multi-process runs (torch.distributed over gloo); default to torchrun's
     # MASTER_ADDR:MASTER_PORT / WORLD_SIZE / RANK

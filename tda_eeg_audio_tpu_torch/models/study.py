@@ -39,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import tuning
 from ..config import (PipelineConfig, DEFAULT_CONFIG, BAND_NAMES, FREQ_BANDS,
                       GOOD_ELECTRODES)
 from ..io.synthetic import window_sample_indices
@@ -107,12 +108,15 @@ class StudyRunner:
     `io.device_store.DeviceStore` (the main path), or a host dataset with
     `.index` and `.load(i)` that is staged batch by batch.  `backend`
     (None = cfg.homology_backend): "auto" / "device" take the fused device
-    programs, "host" the staged path with every diagram on the host engine."""
+    programs, "host" the staged path with every diagram on the host engine.
+    `eeg_batch`, `eeg_bank` and `feature_na_max` left at None take the
+    measured values of `tuning.py`."""
 
     def __init__(self, dataset, cfg: PipelineConfig = DEFAULT_CONFIG,
-                 eeg_batch: int = 16, results_dir: str | Path | None = None,
-                 verbose: bool = True, eeg_bank: bool = True,
-                 feature_na_max: int = 128, t_eeg_pad: int = 5800,
+                 eeg_batch: int | None = None,
+                 results_dir: str | Path | None = None,
+                 verbose: bool = True, eeg_bank: bool | None = None,
+                 feature_na_max: int | None = None, t_eeg_pad: int = 5800,
                  t_audio_pad: int = 44100 * 24, n_rs_max: int = 5900,
                  device=None, backend: str | None = None):
         if cfg.wasserstein_backend not in WASSERSTEIN_BACKENDS:
@@ -128,6 +132,11 @@ class StudyRunner:
         # device-class backends take the fused programs; "host" the staged
         # parity path
         self.on_device = backend in ("auto", "device")
+        # None = the measured knob (tuning.py); an explicit value wins
+        eeg_batch = tuning.EEG_BATCH if eeg_batch is None else eeg_batch
+        eeg_bank = tuning.EEG_BANK if eeg_bank is None else eeg_bank
+        if feature_na_max is None:
+            feature_na_max = tuning.FEATURE_NA_MAX
         self.eeg_batch = eeg_batch
         self.results_dir = Path(results_dir) if results_dir else None
         self.verbose = verbose
