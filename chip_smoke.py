@@ -7,7 +7,7 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels — the H1 reduction, H1 phase 1 and the tiered
      Sinkhorn, each with its instrumented twin, and the sosfiltfilt
-     recurrence (seven nvcc side by side, sm_90a) — from the sources in the
+     chunked scan (seven nvcc side by side, sm_90a) — from the sources in the
      checkout;
   3. hold the reduction kernel against its plain PyTorch version on the
      card, at the shapes of the main path: the features stage's n = 47 EEG
@@ -79,9 +79,12 @@ Phases, each fatal on failure:
      against its plain recurrence on the card (2 recordings × 47 channels
      × 5 bands, T_pad 5800, lengths 5800 / 4,100 / one n ≤ edge; within
      1e-6 × the band's max|ref|) and against scipy's float64 sosfiltfilt on
-     a few series (1e-5), then at the main path's 16-recording shape
-     (timed, held to plain too); then the runner over phase 6's 96
-     recordings with `filter_impl="iir_scan"`, both kernels' launches
+     a few series (1e-5), then at the main path's 16-recording shape, at
+     the runner's tuned batch of 64 recordings and on one series of
+     T = 40,000 whose extension is staged through device memory (each
+     timed, held to plain too, one launch a call, its launch plan and the
+     library's occupancy and registers printed); then the runner over phase
+     6's 96 recordings with `filter_impl="iir_scan"`, both kernels' launches
      counted from 0, and its X held to phase 6's FIR X under
      tests/test_fir_parity.py's gates;
  11. two processes on the card: `cli.main(["features", ...,
@@ -162,6 +165,9 @@ SINKHORN_RTOL = 2e-4    # the tiered Sinkhorn's parity tolerance (tests/test_tor
 SINKHORN_F64_RTOL = 1e-6
 # the stage of the main path that runs the kernel at one shape only
 STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
+# phase 10's sosfiltfilt cases: 2 ragged recordings, the main path's batch of
+# 16, the runner's tuned batch of 64, one series of T = 40,000 (staged)
+IIR_SHAPES = ("ragged", "main", "main64", "long")
 BANDS = ("delta", "theta", "alpha", "beta", "gamma")
 # the reference's artifact schemas (JSON keys, CSV columns) that phase 9 holds
 # the command line's artifacts to
@@ -1451,12 +1457,14 @@ def iir_bound(n, T: int, n_bands: int, n_sections: int, edge: int, clock_hz):
                 bytes=bytes_, flops=flops)
 
 
-def iir_kernel_check(dev, eeg16, n16, clock_hz):
+def iir_kernel_check(dev, eeg64, n64, clock_hz):
     """Phase 10a: the sosfiltfilt kernel against its plain recurrence on the
-    card and against scipy.  Returns a dict of the comparisons and timings
-    at the ragged 2-recording shape and at the main path's 16-recording
-    batch (eeg16 (16, 47, T_pad), n16 (16,)).  The launches made here are
-    not counted."""
+    card and against scipy.  Returns a dict of the comparisons, timings and
+    launch plans at the ragged 2-recording shape, at the main path's
+    16-recording batch (eeg64[:16]), at the runner's tuned batch of 64
+    recordings (eeg64 (64, 47, T_pad), n64 (64,)) and on one series of
+    T = 40,000 (the extension staged through device memory).  The launches
+    made here are not counted."""
     import numpy as np
     import torch
     from scipy import signal as sps
@@ -1467,31 +1475,43 @@ def iir_kernel_check(dev, eeg16, n16, clock_hz):
     sos, zi = S.design_butter_band_bank(250, 4)
     edge = S.sos_edge(sos)
     nb, n_sec = sos.shape[:2]
-    T = eeg16.shape[-1]
+    T = eeg64.shape[-1]
     launches0 = IC.sosfiltfilt_bank_cuda.launches
-    # 2 recordings × 47 channels of random walk + noise, made on the card
     gen = torch.Generator(device=dev).manual_seed(11)
-    x = (torch.cumsum(torch.randn((2, 47, T), generator=gen, device=dev), -1)
-         + torch.randn((2, 47, T), generator=gen, device=dev))
+
+    def walk(shape):                     # random walk + noise, made on the card
+        return (torch.cumsum(torch.randn(shape, generator=gen, device=dev), -1)
+                + torch.randn(shape, generator=gen, device=dev))
+
+    x = walk((2, 47, T))
     n = torch.full((2, 47), T, dtype=torch.int64, device=dev)
     n[1] = 4100
     n[1, 46] = edge - 7                                   # n ≤ edge
     x = torch.where(torch.arange(T, device=dev) < n[..., None], x, 0.0).contiguous()
 
     def compare(xx, nn):
+        T_ = xx.shape[-1]
+        before = IC.sosfiltfilt_bank_cuda.launches
         got = IC.sosfiltfilt_bank_cuda(xx, nn, sos, zi, edge)
+        one_launch = IC.sosfiltfilt_bank_cuda.launches == before + 1
         ref, plain_ms = wall_ms(lambda: S.bandpass_bank_iir_plain(xx, nn, sos, zi))
         err = (got - ref).abs().amax(dim=tuple(i for i in range(got.dim()) if i != got.dim() - 2))
         scale = ref.abs().amax(dim=tuple(i for i in range(ref.dim()) if i != ref.dim() - 2))
         rel = (err / scale.clamp(min=1e-30)).max().item()
-        beyond = torch.arange(T, device=dev) >= nn[..., None, None]
+        beyond = torch.arange(T_, device=dev) >= nn[..., None, None]
         zeros = bool((got.masked_select(beyond.expand(got.shape)) == 0).all())
+        del ref
         IC.sosfiltfilt_bank_cuda(xx, nn, sos, zi, edge)          # warm
         ms = cuda_ms(lambda: IC.sosfiltfilt_bank_cuda(xx, nn, sos, zi, edge), reps=5)
+        plan = IC.kernel_plan(int(xx[..., 0].numel()), nb, T_, edge, n_sec)
         return got, dict(max_abs_err=err.max().item(), max_rel_err=rel,
-                         zeros_beyond_n=zeros, ms=ms, plain_ms=plain_ms,
-                         chains=int(xx[..., 0].numel()) * nb,
-                         **iir_bound(nn.expand(xx.shape[:-1]), T, nb, n_sec,
+                         zeros_beyond_n=zeros, one_launch=one_launch, ms=ms,
+                         plain_ms=plain_ms, chains=plan["chains"], T=T_,
+                         plan={k: plan[k] for k in ("threads", "chunk", "shared_bytes",
+                                                    "blocks_per_sm", "staging",
+                                                    "scratch_bytes")},
+                         library=IC.library_layout(plan, n_sec),
+                         **iir_bound(nn.expand(xx.shape[:-1]), T_, nb, n_sec,
                                      edge, clock_hz))
 
     got2, ragged = compare(x, n)
@@ -1505,16 +1525,21 @@ def iir_kernel_check(dev, eeg16, n16, clock_hz):
             sci = max(sci, float(np.abs(got2[r, c, b, :ns[r, c]] - ref).max()
                                  / np.abs(ref).max()))
     ragged["scipy_max_rel_err"] = sci
-    n16 = torch.as_tensor(n16, device=dev).long()[:, None]
-    _, main = compare(eeg16.contiguous(), n16)
-    # one series (5 chains in one warp) at the main path's length: the time
-    # of a lone chain, against which the batch's time reads as latency
-    one = eeg16[:1, :1].contiguous()
-    IC.sosfiltfilt_bank_cuda(one, n16[:1], sos, zi, edge)
+    n64 = torch.as_tensor(n64, device=dev).long()[:, None]
+    _, main = compare(eeg64[:B_REC].contiguous(), n64[:B_REC])
+    _, main64 = compare(eeg64.contiguous(), n64)
+    # one series (5 chains) at the main path's length: the time of a lone
+    # chain, against which the batch's time reads as latency
+    one = eeg64[:1, :1].contiguous()
+    IC.sosfiltfilt_bank_cuda(one, n64[:1], sos, zi, edge)
     main["one_series_ms"] = cuda_ms(
-        lambda: IC.sosfiltfilt_bank_cuda(one, n16[:1], sos, zi, edge), reps=5)
+        lambda: IC.sosfiltfilt_bank_cuda(one, n64[:1], sos, zi, edge), reps=5)
+    xl = walk((1, 40_000))
+    nl = torch.tensor([39_000], device=dev)
+    xl[:, 39_000:] = 0.0
+    _, long = compare(xl, nl)
     IC.sosfiltfilt_bank_cuda.launches = launches0
-    return dict(edge=edge, ragged=ragged, main=main)
+    return dict(edge=edge, ragged=ragged, main=main, main64=main64, long=long)
 
 
 def fir_vs_iir(x_fir, x_iir):
@@ -1976,23 +2001,28 @@ def main() -> int:
         return 1
 
     # ── phase 10: the exact IIR bank, kernel vs plain, then the runner ──
-    iir = iir_kernel_check(dev, store.eeg[:B_REC], store.ns_e[:B_REC], clock_hz)
-    for shape in ("ragged", "main"):
+    iir = iir_kernel_check(dev, store.eeg[:64], store.ns_e[:64], clock_hz)
+    for shape in IIR_SHAPES:
         r = iir[shape]
         print(f"sosfiltfilt vs plain {shape} ({r['chains']} chains, "
-              f"T_pad {store.eeg.shape[-1]}, edge {iir['edge']}): "
+              f"T {r['T']}, edge {iir['edge']}): "
               f"max_abs_err {r['max_abs_err']:.3g}, max_rel_err (of each band's "
               f"max|ref|) {r['max_rel_err']:.3g}, zeros beyond n "
-              f"{r['zeros_beyond_n']}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['zeros_beyond_n']}, one launch {r['one_launch']}, kernel "
+              f"{r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.1f} ms, bound bytes {r['t_bytes']:.4f} ms / "
               f"operations {r['t_ops']:.4f} ms, chain floor estimate "
               f"{r['chain_estimate_ms']:.4f} ms (assumed {FP64_FMA_CYCLES} cycles "
-              f"per dependent FP64 FMA at the max SM clock, not measured)"
+              f"per dependent FP64 FMA at the max SM clock, not measured), "
+              f"plan {json.dumps(r['plan'])}, library {json.dumps(r['library'])}"
               + (f", scipy max_rel_err {r['scipy_max_rel_err']:.3g}"
-                 if "scipy_max_rel_err" in r else
-                 f", one series (5 chains) {r['one_series_ms']:.4f} ms"), flush=True)
-    bad_iir = [k for k in ("ragged", "main") if iir[k]["max_rel_err"] > 1e-6
-               or not iir[k]["zeros_beyond_n"]]
+                 if "scipy_max_rel_err" in r else "")
+              + (f", one series (5 chains) {r['one_series_ms']:.4f} ms"
+                 if "one_series_ms" in r else ""), flush=True)
+    bad_iir = [k for k in IIR_SHAPES if iir[k]["max_rel_err"] > 1e-6
+               or not iir[k]["zeros_beyond_n"] or not iir[k]["one_launch"]]
+    if iir["main"]["plan"]["scratch_bytes"] or iir["long"]["plan"]["staging"] != "device":
+        bad_iir.append("plan")
     if bad_iir or iir["ragged"]["scipy_max_rel_err"] > 1e-5:
         print(f"FAIL: sosfiltfilt kernel vs plain / scipy: {bad_iir}, scipy "
               f"{iir['ragged']['scipy_max_rel_err']}", file=sys.stderr)
@@ -2121,16 +2151,16 @@ def main() -> int:
                  "(XLA associative scan, not Pallas)",
         launches=iir_report["sosfiltfilt_launches_total"],
         launches_by_path=dict(runner_iir_scan=iir_report["sosfiltfilt_launches"]),
-        max_abs_err=max(iir["ragged"]["max_abs_err"], iir["main"]["max_abs_err"]),
-        ms=iir["main"]["ms"], plain_ms=iir["main"]["plain_ms"],
+        max_abs_err=max(iir[k]["max_abs_err"] for k in IIR_SHAPES),
+        ms=iir["main"]["ms"], ms_64=iir["main64"]["ms"], plain_ms=iir["main"]["plain_ms"],
         bound_ms=max(iir["main"]["t_bytes"], iir["main"]["t_ops"]),
         bound_by="bytes" if iir["main"]["t_bytes"] >= iir["main"]["t_ops"]
         else "operations", library_ms=None,
-        by_shape={k: dict(chains=iir[k]["chains"], ms=iir[k]["ms"],
+        by_shape={k: dict(chains=iir[k]["chains"], T=iir[k]["T"], ms=iir[k]["ms"],
                           plain_ms=iir[k]["plain_ms"],
                           bound_ms=max(iir[k]["t_bytes"], iir[k]["t_ops"]),
-                          max_rel_err=iir[k]["max_rel_err"])
-                  for k in ("ragged", "main")},
+                          max_rel_err=iir[k]["max_rel_err"], plan=iir[k]["plan"])
+                  for k in IIR_SHAPES},
         one_series_ms=iir["main"]["one_series_ms"],
         scipy_max_rel_err=iir["ragged"]["scipy_max_rel_err"],
         held_against_plain=True),

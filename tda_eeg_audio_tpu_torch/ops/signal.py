@@ -333,11 +333,12 @@ def welch_psd(x: torch.Tensor, fs: float = 250.0, nperseg: int = 256,
 # The reference's Butterworth filtfilt, with the JAX package's names and its
 # padded-batch semantics.  The JAX package runs every biquad as a log-depth
 # associative scan over 2×2 affine pairs in float32; the port runs the
-# recurrence itself, sample after sample, with float64 state (scipy's direct
-# form II transposed): closer to scipy, and on the card one thread per series
-# and band (`csrc/sosfiltfilt.cu`).  The plain version below is that
-# recurrence as a Python loop over time, vectorised over every series; it is
-# the specification, serves CPU tensors, and is what the kernel is held to.
+# recurrence with float64 state (scipy's direct form II transposed): closer
+# to scipy.  On the card one block per series and band cuts the time axis
+# into chunks carried by the same affine algebra (`csrc/sosfiltfilt.cu`).
+# The plain version below is the recurrence as a Python loop over time,
+# vectorised over every series; it is the specification, serves CPU tensors,
+# and is what the kernel is held to.
 
 
 @functools.lru_cache(maxsize=None)

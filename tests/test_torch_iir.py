@@ -178,23 +178,203 @@ def test_sos_edge_is_scipys_padlen():
 
 
 def test_kernel_plan():
-    """One thread per (series, band) in one-warp blocks; the float64 scratch
-    holds T + 2·edge rows of every chain."""
+    """One block per (series, band) chain, the time axis in odd chunks of C
+    samples, one a thread; the chain's float64 extension in shared memory
+    up to a block's limit (no device-memory scratch at T_pad 5800), in
+    device memory just past it."""
     edge = tsig.sos_edge(tsig.design_butter_band_bank(250, 4)[0])
     plan = tic.kernel_plan(16 * 47, 5, 5800, edge, 4)
-    assert plan == dict(threads=32, grid=118, chains=3760, text=5854,
-                        scratch_bytes=5854 * 3760 * 8)
-    assert tic.kernel_plan(2 * 47, 5, 5800, edge, 4)["grid"] == 15
-    assert tic.kernel_plan(1, 5, 10, edge, 4)["grid"] == 1
+    assert plan == dict(threads=256, chunk=23, chunks=255, chains=3760, grid=3760,
+                        text=5854, shared_bytes=46_832, blocks_per_sm=4,
+                        staging="shared", scratch_bytes=0)
+    big = tic.kernel_plan(64 * 47, 5, 5800, edge, 4)
+    assert big["grid"] == 15_040 and big["scratch_bytes"] == 0
+    assert [tic.kernel_plan(1, 5, 5800, edge, 4, t)["chunk"] for t in tic.THREAD_CHOICES] \
+        == [183, 93, 47, 23, 13, 7]
+    # the last T whose extension fits a block beside the carry's static part
+    t_max = (tic.SMEM_BLOCK - tic.STATIC_SMEM) // 8 - 2 * edge
+    assert t_max == 28_874
+    fits = tic.kernel_plan(1, 5, t_max, edge, 4)
+    past = tic.kernel_plan(1, 5, t_max + 1, edge, 4)
+    assert (fits["staging"], fits["shared_bytes"], fits["scratch_bytes"],
+            fits["blocks_per_sm"]) == ("shared", (t_max + 2 * edge) * 8, 0, 1)
+    assert (past["staging"], past["shared_bytes"], past["scratch_bytes"],
+            past["blocks_per_sm"]) == ("device", 0, (t_max + 1 + 2 * edge) * 5 * 8, 8)
+    long = tic.kernel_plan(1, 5, 40_000, edge, 4)
+    assert (long["staging"], long["chunk"], long["chunks"]) == ("device", 157, 256)
+    # ragged lengths: C odd, the chunks cover the extension, none is empty
+    assert tic.kernel_plan(1, 5, 1200, edge, 4)["chunk"] == 5
+    assert tic.kernel_plan(1, 5, 1200, edge, 4)["chunks"] == 251
+    assert tic.kernel_plan(1, 5, 10, edge, 4, 32)["chunks"] == 22   # C = 3: 10 threads idle
+    for T in (0, 1, 20, 731, 1200, 5800, 40_000):
+        for threads in tic.THREAD_CHOICES:
+            p = tic.kernel_plan(2, 5, T, edge, 4, threads)
+            assert p["chunk"] % 2 == 1 and p["chunk"] * threads >= p["text"], (T, threads)
+            assert (p["chunks"] - 1) * p["chunk"] < p["text"] <= p["chunks"] * p["chunk"]
+            assert p["chunks"] <= threads and p["blocks_per_sm"] >= 1
     for bad in (0, tic.MAX_SECTIONS + 1):
         with pytest.raises(ValueError):
             tic.kernel_plan(10, 5, 100, edge, bad)
+    with pytest.raises(ValueError):
+        tic.kernel_plan(10, 5, 100, edge, 4, threads=96)
     # the source instantiates exactly the sections the plan accepts, and its
-    # load-ahead and entry point are what the wrapper binds
+    # entry points are what the wrapper binds
     src = Path(tic.SRC).read_text()
     cases = [int(c) for c in re.findall(r"CASE\((\d+)\)", src)]
     assert cases == list(range(1, tic.MAX_SECTIONS + 1))
     assert 'extern "C" int sosfiltfilt_launch(' in src
+    assert 'extern "C" int sosfiltfilt_layout(' in src
+
+
+def _odd_extension(x, n, edge):
+    """The kernel's buffer before the forward pass: x (R, T) → (R, T + 2·edge)
+    float64, the odd extension of each row to n + 2·edge samples (source
+    index clipped to [0, T − 1]), zero beyond."""
+    R, T = x.shape
+    xd = x.double()
+    j = torch.arange(T + 2 * edge)
+    nn = n[:, None]
+    take = lambda i: xd.gather(1, i.clamp(0, T - 1).expand(R, -1))
+    left = 2.0 * xd[:, :1] - take(edge - j[None])
+    mid = take(j[None] - edge)
+    right = 2.0 * take(nn - 1) - take(nn - 2 - (j[None] - edge - nn))
+    ext = torch.where(j < edge, left, torch.where(j < edge + nn, mid, right))
+    return torch.where(j < nn + 2 * edge, ext, 0.0)
+
+
+def _chunked_pass(buf, first, step, n_pass, u0, sos, zi, pw, chunk):
+    """One pass of the kernel's cascade, modelled in float64 over every chain
+    and chunk at once: sample j of chain r at buf[r, first[r] + step·j],
+    j < n_pass[r]; per section (a) each chunk from zero state (chunk 0 from
+    zi·u0), (b) the kernel's carry (a Kogge–Stone scan over 32-chunk warps
+    with A^(C·d), the warps in order through A^(32·C), A^(C·(lane + 1)) on
+    the warp's incoming state), (c) each chunk rerun from its true start,
+    its output written over its input."""
+    R, text = buf.shape
+    C = chunk
+    W = max(1, -(-(-(-int(n_pass.max()) // C)) // 32))
+    K = 32 * W
+    lo = torch.arange(K) * C
+    lens = (torch.minimum(lo[None] + C, n_pass[:, None]) - lo[None]).clamp(0, C)
+    on = torch.arange(C)[None, None] < lens[..., None]             # (R, K, C)
+    idx = (first[:, None, None] + step * (lo[None, :, None] + torch.arange(C))
+           ).clamp(0, text - 1)
+    flat = buf.view(-1)
+    rows = torch.arange(R)[:, None, None] * text
+    mv = lambda M, v: torch.einsum("...ab,...b->...a", M, v)
+    lane = torch.arange(32)[:, None]
+    for s in range(sos.shape[1]):
+        b0, b1, b2, a1, a2 = (sos[:, s, i][:, None] for i in (0, 1, 2, 4, 5))
+        P = pw[:, s]                                                 # (R, 32, 2, 2)
+        start = torch.zeros(R, K, 2, dtype=torch.float64)
+        start[:, 0] = zi[:, s] * u0[:, None]
+
+        def run(z, write):
+            r = buf.gather(1, idx.view(R, -1)).view(on.shape)
+            z1, z2 = z[..., 0].clone(), z[..., 1].clone()
+            for j in range(C):
+                u, m = r[..., j], on[..., j]
+                y = b0 * u + z1
+                z1 = torch.where(m, (b1 * u + z2) - a1 * y, z1)
+                z2 = torch.where(m, b2 * u - a2 * y, z2)
+                r[..., j] = y
+            if write:
+                flat[(rows + idx)[on]] = r[on]
+            return torch.stack([z1, z2], -1)
+
+        v = run(start, False).view(R, W, 32, 2)
+        for d in (1, 2, 4, 8, 16):
+            q = torch.zeros_like(v)
+            q[:, :, d:] = v[:, :, :-d]
+            v = v + torch.where(lane >= d, mv(P[:, d - 1][:, None, None], q), 0.0)
+        inc = torch.zeros(R, W, 2, dtype=torch.float64)
+        for w in range(1, W):
+            inc[:, w] = v[:, w - 1, 31] + mv(P[:, 31], inc[:, w - 1])
+        v = v + mv(P[:, None], inc[:, :, None])
+        true_start = torch.cat([inc[:, :, None], v[:, :, :31]], 2).view(R, K, 2)
+        true_start[:, 0] = start[:, 0]
+        run(true_start, True)
+
+
+def chunked_bank(x, n, sos_bank, zi_bank, edge, chunk):
+    """A float64 model of the kernel at chunk length `chunk`, from the
+    launcher's own operators (`chunk_operators`): x (N, T), n (N,) →
+    (N, nb, T) float64."""
+    N, T = x.shape
+    nb = sos_bank.shape[0]
+    n = torch.as_tensor(n).long().clamp(0, T).repeat_interleave(nb)
+    band = torch.arange(N * nb) % nb
+    sos = torch.as_tensor(sos_bank)[band]
+    zi = torch.as_tensor(zi_bank)[band]
+    pw = torch.as_tensor(tic.chunk_operators(sos_bank, chunk))[band]
+    buf = _odd_extension(torch.as_tensor(x), torch.as_tensor(n[::nb]), edge
+                         ).repeat_interleave(nb, 0).contiguous()
+    L = n + 2 * edge
+    _chunked_pass(buf, torch.zeros_like(L), 1, L, buf[:, 0].clone(), sos, zi, pw, chunk)
+    r0 = buf[torch.arange(N * nb), L - 1].clone()
+    _chunked_pass(buf, L - 1, -1, n + edge, r0, sos, zi, pw, chunk)
+    t = torch.arange(T)
+    out = torch.where(t < n[:, None], buf[:, edge:edge + T], 0.0)
+    return out.view(N, nb, T)
+
+
+@pytest.fixture(scope="module")
+def chunked(bank):
+    """The model on the module's ragged bank at chunk lengths 1, 7, the
+    plan's own and one longer than any extension."""
+    x, _, _ = bank
+    sos, zi = tsig.design_butter_band_bank(250, 4)
+    edge = tsig.sos_edge(sos)
+    plan = tic.kernel_plan(x.shape[0] * x.shape[1], 5, T, edge, 4)
+    xs, ns = x.reshape(-1, T), np.repeat(NS, x.shape[1])
+    return {c: chunked_bank(xs, ns, sos, zi, edge, c).reshape(*x.shape[:2], 5, T)
+            for c in (1, 7, plan["chunk"], T + 2 * edge + 47)}
+
+
+def test_chunk_operators_reproduce_the_recurrence(bank, chunked):
+    """The kernel's algebra on the CPU: chunks from zero state, the carry
+    through the host's powers A^(C·m) and the rerun from each chunk's true
+    start equal the plain float64 recurrence within 1e-12 of each band's
+    max at every chunk length, on
+    ragged lengths (n = 1200, 731, 20 ≤ edge, 0) and all five bands — the
+    delta band's poles nearest the unit circle included."""
+    x, _, _ = bank
+    sos, zi = tsig.design_butter_band_bank(250, 4)
+    plain = tsig.bandpass_bank_iir_plain(torch.as_tensor(x).double(),
+                                         torch.as_tensor(NS[:, None]), sos, zi).numpy()
+    for c, got in chunked.items():
+        got = got.numpy()
+        for b, name in enumerate(BANDS):
+            rel = _rel(got[..., b, :], plain[..., b, :])
+            print(f"chunk {c}, {name}: model vs plain {rel:.3g}")
+            assert rel < 1e-12, (c, name)
+        for i, n in enumerate(NS):
+            assert np.all(got[i, ..., n:] == 0.0)
+    A = tic.chunk_operators(sos, 3)
+    assert A.shape == (5, 4, tic.POW_M, 2, 2)
+    a = np.array([[-sos[0, 0, 4], 1.0], [-sos[0, 0, 5], 0.0]])
+    np.testing.assert_allclose(A[0, 0, 1], np.linalg.matrix_power(a, 6), rtol=1e-13)
+    # stable, the delta band's poles nearest the unit circle: its powers
+    # grow before they decay (non-normal A), and still vanish at long range
+    radius = np.abs(np.roots([1.0, sos[0, 0, 4], sos[0, 0, 5]])).max()
+    assert radius < 1.0
+    assert max(np.abs(np.roots([1.0, *sos[b, s, 4:]])).max() for b in range(5)
+               for s in range(4)) == max(np.abs(np.roots([1.0, *sos[0, s, 4:]])).max()
+                                          for s in range(4))
+    assert np.abs(A[0]).max() > 1.0
+    assert np.abs(tic.chunk_operators(sos, 500)[..., -1, :, :]).max() < 1e-12
+
+
+def test_chunked_model_matches_jax(bank, chunked):
+    """The model at the plan's chunk against the JAX package's
+    `bandpass_bank_iir_scan`, within the module's JAX_TOL per band."""
+    _, _, ref = bank
+    edge = tsig.sos_edge(tsig.design_butter_band_bank(250, 4)[0])
+    got = chunked[tic.kernel_plan(12, 5, T, edge, 4)["chunk"]].numpy()
+    for b, name in enumerate(BANDS):
+        rel = _rel(got[..., b, :], ref[..., b, :])
+        print(f"{name}: chunked model vs JAX {rel:.3g} (tolerance {JAX_TOL[name]:g})")
+        assert rel < JAX_TOL[name], name
 
 
 def test_cuda_launcher_refuses_cpu_and_router_takes_plain():
@@ -208,19 +388,61 @@ def test_cuda_launcher_refuses_cpu_and_router_takes_plain():
     assert tic.sosfiltfilt_bank_cuda.launches == before
 
 
+def _card_case(rng, shape, T, ns):
+    """Random walks of `shape` series on the card, zero beyond n."""
+    x = torch.as_tensor(_walk(rng, (*shape, T)), device="cuda")
+    n = torch.as_tensor(ns, device="cuda")
+    return torch.where(torch.arange(T, device="cuda") < n[..., None], x, 0.0), n
+
+
+def _hold_to_plain(got, x, n, sos, zi):
+    ref = tsig.bandpass_bank_iir_plain(x, n, sos, zi)
+    for b in range(sos.shape[0]):
+        rel = _rel(got[..., b, :].cpu().numpy(), ref[..., b, :].cpu().numpy())
+        assert rel < 1e-6, (b, rel)
+    beyond = torch.arange(x.shape[-1], device="cuda") >= n.expand(x.shape[:-1])[..., None, None]
+    assert bool((got.masked_select(beyond.expand(got.shape)) == 0).all())
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
+    """Ragged recordings, the runner's tuned batch of 64 recordings × 47
+    channels at T_pad 5800 (the extension in shared memory), series of
+    T = 12,000 (C = 49, 96 KB of shared memory) and one series of T = 40,000
+    (staged through device memory): one launch each, within 1e-6 of each
+    band's max|plain|, zero beyond n."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
     rng = np.random.default_rng(5)
-    x = torch.as_tensor(_walk(rng, (3, 47, 5800)), device="cuda")
-    n = torch.tensor([[5800], [4100], [20]], device="cuda")
-    x = torch.where(torch.arange(5800, device="cuda") < n[..., None], x, 0.0)
     sos, zi = tsig.design_butter_band_bank(250, 4)
-    before = tic.sosfiltfilt_bank_cuda.launches
-    got = tsig.bandpass_bank_iir_scan(x, n, 250, 4)
-    assert tic.sosfiltfilt_bank_cuda.launches == before + 1
-    ref = tsig.bandpass_bank_iir_plain(x, n, sos, zi)
-    for b in range(5):
-        assert _rel(got[..., b, :].cpu().numpy(), ref[..., b, :].cpu().numpy()) < 1e-6
-    assert bool((got[1, ..., 4100:] == 0).all())
+    edge = tsig.sos_edge(sos)
+    n64 = rng.integers(2500, 5801, (64, 1))
+    n64[:2] = 5800
+    cases = [_card_case(rng, (3, 47), 5800, [[5800], [4100], [20]]),
+             _card_case(rng, (64, 47), 5800, n64),
+             _card_case(rng, (2, 3), 12_000, [[12_000], [7_001]]),
+             _card_case(rng, (1,), 40_000, [39_000])]
+    plans = [tic.kernel_plan(int(np.prod(x.shape[:-1])), 5, x.shape[-1], edge, 4)
+             for x, _ in cases]
+    assert [(p["staging"], p["chunk"]) for p in plans] == [
+        ("shared", 23), ("shared", 23), ("shared", 49), ("device", 157)]
+    for x, n in cases:
+        before = tic.sosfiltfilt_bank_cuda.launches
+        got = tsig.bandpass_bank_iir_scan(x, n, 250, 4)
+        assert tic.sosfiltfilt_bank_cuda.launches == before + 1
+        _hold_to_plain(got, x, n, sos, zi)
+
+
+@pytest.mark.cuda
+def test_kernel_does_not_depend_on_chunk_length():
+    """Every chunk length the plan can pick (one per thread count: C = 183
+    … 7 at T_pad 5800) stays within 1e-6 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
+    rng = np.random.default_rng(6)
+    sos, zi = tsig.design_butter_band_bank(250, 4)
+    edge = tsig.sos_edge(sos)
+    x, n = _card_case(rng, (4, 47), 5800, [[5800], [4100], [731], [20]])
+    for threads in tic.THREAD_CHOICES:
+        got = tic.sosfiltfilt_bank_cuda(x, n, sos, zi, edge, threads=threads)
+        _hold_to_plain(got, x, n, sos, zi)
