@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Benchmarks of the PyTorch/CUDA port (`tda_eeg_audio_tpu_torch`).
 
-    python3 bench_torch.py [--smoke] [--repeats N] [--no-bank] [--seed S]
+    python3 bench_torch.py [--smoke] [--repeats N] [--no-bank] [--seed S] [--spans]
     python3 bench_torch.py --eeg-throughput [--recordings R] [--windows K]
 
 Full study (the default): on one CUDA card, per-recording features (EEG
@@ -16,8 +16,16 @@ tuning.py` (`TDA_TORCH_*` variables override them); `--no-bank` forces the
 bank off.  After every completed repeat one JSON line is printed (the last
 line wins): `metric: full_study_seconds`, `value` (best repeat), `runs`,
 `checks`, the knobs with the source of each, the ingest seconds and the
-card's name and power limit.  The host Random-Forest stage is not part of
-the study's clock.
+card's name and power limit.  `--spans` adds one more repeat under
+`runtime.timed_spans()`, outside `value`: its line gains `spanned`, that
+repeat's stage seconds and the wall ms of every span summed over the study
+(the comparison's parts; the control's `control_fused_rows`,
+`control_deviant_scan`, `control_mismatch_cache`, `control_exact_rows` with
+`control_own_diagrams` and `control_wass_h1` inside it, `control_stats`).
+Every span synchronises the card, so its stage seconds are not the
+benchmark's.  Run from another checkout (`python3 <tree>/bench_torch.py`),
+it reads that checkout's port: parent and change in one call.  The host
+Random-Forest stage is not part of the study's clock.
 
 `--eeg-throughput`: the EEG feature pass alone in windows/s, the unit of
 BASELINE.json's metric — R recordings (default 64) of band-mixture EEG (5
@@ -190,7 +198,10 @@ def full_study(args) -> int:
     from tda_eeg_audio_tpu_torch.models.study import StudyRunner
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
+    from tda_eeg_audio_tpu_torch.ops import sinkhorn_log_cuda as SL
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_h0_cuda as WH
+    from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     card = card_line()
     n_subj, per = (3, 2) if args.smoke else (45, 16)
@@ -199,6 +210,8 @@ def full_study(args) -> int:
     dev = torch.device("cuda")
 
     WC.build()                                  # nvcc, before any clock
+    SL.build()
+    WH.build()
     t0 = _sync_time(dev)
     ds = build_synthetic_device(n_subjects=n_subj, n_per_subject=per,
                                 seed=args.seed)
@@ -206,58 +219,81 @@ def full_study(args) -> int:
     print(f"[bench] {len(ds)} recordings on {card}; ingest {t_ingest:.1f}s",
           file=sys.stderr, flush=True)
 
+    def study(td):
+        """One study by a fresh runner: stage seconds, launches, checks."""
+        runner = StudyRunner(ds, cfg, eeg_batch=tuning.EEG_BATCH,
+                             eeg_bank=bank,
+                             feature_na_max=tuning.FEATURE_NA_MAX,
+                             results_dir=td, verbose=False)
+        launches0, redone0 = HC.h1_diagrams_cuda.launches, run_tda.redone
+        sk0 = WC.sinkhorn_tiered_cuda.launches
+        p10 = P1.phase1_cuda.launches
+        sl0, h00 = SL.sinkhorn_log_cuda.launches, WH.wasserstein_h0_cuda.launches
+        t0 = _sync_time(dev)
+        X, y, subjects, filenames, meta = runner.compute_feature_dataset()
+        t1 = _sync_time(dev)
+        cmp_out = runner.run_comparison(n_permutations=1000)
+        t2 = _sync_time(dev)
+        runner.run_control()
+        t3 = _sync_time(dev)
+        run = dict(
+            total=t3 - t0, features_s=t1 - t0, compare_s=t2 - t1,
+            control_s=t3 - t2, bank_batches=runner._bank_served,
+            bank_fallback=runner._bank_fallback,
+            kernel_launches=HC.h1_diagrams_cuda.launches - launches0,
+            phase1_launches=P1.phase1_cuda.launches - p10,
+            # bucketing + one per width class: 5 a comparison batch
+            sinkhorn_launches=WC.sinkhorn_tiered_cuda.launches - sk0,
+            # the control's exact redo (un-tiered Sinkhorn) and one
+            # exact H0 DP a comparison batch
+            sinkhorn_log_launches=SL.sinkhorn_log_cuda.launches - sl0,
+            h0_launches=WH.wasserstein_h0_cuda.launches - h00,
+            redone=dict(runner.redo_counts,
+                        windows=run_tda.redone - redone0))
+        checks = {"n_features_220": X.shape[1] == 220,
+                  "rows_complete":
+                      len(cmp_out["detailed_rows"]) >= len(ds) * 4,
+                  # every H1 chunk: one phase-1 launch, one reduction launch
+                  "phase1_per_reduction":
+                      run["phase1_launches"] == run["kernel_launches"],
+                  "X_shape": list(X.shape)}
+        return run, checks
+
+    def line(runs, checks, pending, spanned=None):
+        ok = bool(checks["n_features_220"] and checks["rows_complete"]
+                  and checks["phase1_per_reduction"])
+        out = {"metric": "full_study_seconds",
+               "value": min(r["total"] for r in runs),
+               "unit": "s (features + comparison + control, 5 bands, one card)",
+               "ok": ok, "runs": runs, "checks": checks,
+               "n_recordings": len(ds), "eeg_bank": bank,
+               "eeg_batch": tuning.EEG_BATCH,
+               "feature_na_max": tuning.FEATURE_NA_MAX,
+               "knob_source": tuning.SOURCE, "ingest_s": t_ingest,
+               "pending_repeats": pending,
+               "card": card, "torch": torch.__version__,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if spanned is not None:
+            out["spanned"] = spanned
+        print(json.dumps(out), flush=True)
+        return ok
+
     runs = []
+    repeats = max(args.repeats, 1)
     with tempfile.TemporaryDirectory() as td:
-        for rep in range(max(args.repeats, 1)):
-            runner = StudyRunner(ds, cfg, eeg_batch=tuning.EEG_BATCH,
-                                 eeg_bank=bank,
-                                 feature_na_max=tuning.FEATURE_NA_MAX,
-                                 results_dir=td, verbose=False)
-            launches0, redone0 = HC.h1_diagrams_cuda.launches, run_tda.redone
-            sk0 = WC.sinkhorn_tiered_cuda.launches
-            p10 = P1.phase1_cuda.launches
-            t0 = _sync_time(dev)
-            X, y, subjects, filenames, meta = runner.compute_feature_dataset()
-            t1 = _sync_time(dev)
-            cmp_out = runner.run_comparison(n_permutations=1000)
-            t2 = _sync_time(dev)
-            runner.run_control()
-            t3 = _sync_time(dev)
-            runs.append(dict(
-                total=t3 - t0, features_s=t1 - t0, compare_s=t2 - t1,
-                control_s=t3 - t2, bank_batches=runner._bank_served,
-                bank_fallback=runner._bank_fallback,
-                kernel_launches=HC.h1_diagrams_cuda.launches - launches0,
-                phase1_launches=P1.phase1_cuda.launches - p10,
-                # bucketing + one per width class: 5 a comparison batch
-                sinkhorn_launches=WC.sinkhorn_tiered_cuda.launches - sk0,
-                redone=dict(runner.redo_counts,
-                            windows=run_tda.redone - redone0)))
-            print(f"[bench] rep {rep}: " + json.dumps(runs[-1]), file=sys.stderr,
+        for rep in range(repeats):
+            run, checks = study(td)
+            runs.append(run)
+            print(f"[bench] rep {rep}: " + json.dumps(run), file=sys.stderr,
                   flush=True)
-            checks = {"n_features_220": X.shape[1] == 220,
-                      "rows_complete":
-                          len(cmp_out["detailed_rows"]) >= len(ds) * 4,
-                      # every H1 chunk: one phase-1 launch, one reduction launch
-                      "phase1_per_reduction":
-                          runs[-1]["phase1_launches"] == runs[-1]["kernel_launches"],
-                      "X_shape": list(X.shape)}
-            ok = bool(checks["n_features_220"] and checks["rows_complete"]
-                      and checks["phase1_per_reduction"])
-            print(json.dumps({
-                "metric": "full_study_seconds",
-                "value": min(r["total"] for r in runs),
-                "unit": "s (features + comparison + control, 5 bands, one card)",
-                "ok": ok, "runs": runs, "checks": checks,
-                "n_recordings": len(ds), "eeg_bank": bank,
-                "eeg_batch": tuning.EEG_BATCH,
-                "feature_na_max": tuning.FEATURE_NA_MAX,
-                "knob_source": tuning.SOURCE, "ingest_s": t_ingest,
-                "pending_repeats": max(args.repeats, 1) - rep - 1,
-                "card": card, "torch": torch.__version__,
-                "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}),
-                flush=True)
-    return 0 if runs and ok else 1
+            ok = line(runs, checks, repeats - rep - 1 + bool(args.spans))
+        if args.spans:
+            # every span synchronises the card at both ends: this repeat's
+            # stage seconds are not the benchmark's, its spans are the split
+            with timed_spans() as parts:
+                run, checks = study(td)
+            ok = line(runs, checks, 0, dict(run, spans_ms=dict(parts)))
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -273,6 +309,8 @@ def main(argv=None) -> int:
     ap.add_argument("--no-bank", action="store_true",
                     help="comparison recomputes the EEG diagrams (eeg_bank=False)")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--spans", action="store_true",
+                    help="full study: one more repeat with every span timed")
     args = ap.parse_args(argv)
 
     import torch

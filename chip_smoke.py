@@ -6,9 +6,9 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels — the H1 reduction, H1 phase 1 and the tiered
-     Sinkhorn, each with its instrumented twin, and the sosfiltfilt
-     chunked scan (seven nvcc side by side, sm_90a) — from the sources in the
-     checkout;
+     Sinkhorn, each with its instrumented twin, the sosfiltfilt chunked
+     scan, the un-tiered log-domain Sinkhorn and the exact H0 DP (nine nvcc
+     side by side, sm_90a) — from the sources in the checkout;
   3. hold the reduction kernel against its plain PyTorch version on the
      card, at the shapes of the main path: the features stage's n = 47 EEG
      windows and the comparison's n = 124 Takens clouds of one 16-recording
@@ -38,8 +38,9 @@ Phases, each fatal on failure:
      comparison_program, with the launch count zeroed just before and read
      just after, the comparison stage's parts timed by its own spans, and
      check shapes, finiteness and launches (the H1 kernels' by stage — one
-     phase-1 launch for every reduction launch — the tiered Sinkhorn's per
-     batch);
+     phase-1 launch for every reduction launch — the tiered Sinkhorn's and
+     the exact H0 DP's per batch); the warm-up run keeps the pairs the
+     comparison hands the tiered Sinkhorn (phase 4b) and the H0 DP (13);
  4b. the tiered Sinkhorn kernel against its plain version on the card, on
      the 2,400 pairs phase 4's comparison hands it (kept in the warm-up run)
      and on synthetic pairs of every width class (empty sides, 16 | 17 ...
@@ -58,7 +59,9 @@ Phases, each fatal on failure:
      `StudyRunner.compute_feature_dataset → run_comparison → run_control`
      with the union bank on, per-stage seconds and kernel launches, the
      counts of what the exact redo did, and checks of shapes, finiteness,
-     bank service and statistics;
+     bank service and statistics; the control stage's parts timed by its
+     spans, and the pairs its exact redo hands the un-tiered Sinkhorn kept
+     for phase 13;
   7. one batch through `comparison_from_bank` and through
      `comparison_program` on the card (integers and flags equal, floats
      within phase 5's tolerances);
@@ -69,8 +72,9 @@ Phases, each fatal on failure:
      layout, then `cli.main` in this process for preprocess, graphs,
      features, features as two partials + --merge-partials (X equal bit for
      bit), features --backend host (X against the kernel's within phase 5's
-     tolerances), compare, compare --wasserstein exact, control --wasserstein
-     exact and eda, each command's kernel launches counted from 0, its
+     tolerances), compare, compare --wasserstein exact, control, control
+     --wasserstein exact and eda, each command's kernel launches counted from
+     0 (the exact H0 DP's in compare and control only), its
      artifacts checked for the reference's keys and columns; prints the
      exact-vs-Sinkhorn difference of wasserstein_h1 per band (a reading, not
      a gate) and the `cli` line.  classify, ablate and study are not run:
@@ -109,6 +113,18 @@ Phases, each fatal on failure:
      printed) and equal overflow windows and deviants redone.
      Phases 6, 7, 8 and 10 run at the defaults (batch 16, the bank on,
      arena 128) whatever tuning.json holds;
+ 13. the un-tiered log-domain Sinkhorn kernel through its router
+     (`sinkhorn_cost_pairs`) against the plain version on the card, on the
+     pairs phase 6's control redo handed it and on 112 pairs made from a
+     seed (0–128 bars a side, empty sides): within rtol 2e-4 of the plain
+     float32 version and 1e-4 of its float64 run, the same NaN / inf, one
+     launch a call, no host synchronisation (set_sync_debug_mode("error")),
+     timed beside the plain version, peak memory a call, the bound at each
+     pair's own width and at the pad width; the exact H0 DP kernel through
+     `wasserstein_h0_exact` against the plain loop on the card on phase 4's
+     1,200 pairs (46 / 123) and on staged pads (64 / 128) with all-pad and
+     single-bar rows: within rtol 1e-6, one launch a call, bit for bit
+     against the CPU's plain loop (a reading), timed, its bound by bytes;
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package, nor scikit-learn or
 matplotlib.
@@ -163,6 +179,15 @@ SINKHORN_RTOL = 2e-4    # the tiered Sinkhorn's parity tolerance (tests/test_tor
 # reciprocals round, a few float32 ULPs of <P, D>; the float32 plain
 # version, whose duals round too, sits up to ~2e-4 away (phase 4b prints both)
 SINKHORN_F64_RTOL = 1e-6
+# phase 13: the un-tiered Sinkhorn kernel against its plain float32 version
+# and against a float64 run of it (float64 duals: the kernel sits near the
+# float64 run, so the float64 gate is the one that tells a wrong kernel; the
+# distance from the float32 version is mostly that version's own rounding,
+# printed beside it); the exact H0 kernel against its plain loop on the card (whose
+# torch.cumsum sums in another order than the kernel's and the CPU's)
+SINKHORN_LOG_RTOL = 2e-4
+SINKHORN_LOG_F64_RTOL = 1e-4
+H0_RTOL = 1e-6
 # the stage of the main path that runs the kernel at one shape only
 STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
 # phase 10's sosfiltfilt cases: 2 ragged recordings, the main path's batch of
@@ -547,6 +572,19 @@ def same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def peak_bytes(fn):
+    """Device memory a call of fn() allocates at its peak, beyond what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False):
     """Phase 3b: the phase-1 kernel against the plain `_phase1` on the same
     inputs, bit for bit on every key: `_phase1` on the card, or with
@@ -616,19 +654,11 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False)
     phases = phase1_profile_reading(prof["prof"], prof["stamps"], n_sms,
                                     P1.blocks_per_sm(n, True))
 
-    def peak(fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        fn()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - before
-
     run_kernel = lambda: P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)  # noqa: E731
     run_plain = lambda: H._phase1(dm, n, 2.0, na_max, n_pts)  # noqa: E731
     ms = cuda_ms(run_kernel, reps)
     plain_ms = cuda_ms(run_plain, 2)
-    peak_kernel, peak_plain = peak(run_kernel), peak(run_plain)
+    peak_kernel, peak_plain = peak_bytes(run_kernel), peak_bytes(run_plain)
     P1.phase1_cuda.launches = launches0
 
     in_bytes = dm.numel() * 4 + (0 if n_pts is None else n_pts.numel() * n_pts.element_size())
@@ -666,17 +696,20 @@ def main_path(batch, mis, cfg, dev):
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
     from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
+    from tda_eeg_audio_tpu_torch.ops.wasserstein_h0_cuda import wasserstein_h0_cuda
 
-    ms, launches, p1_launches, sk_launches = {}, {}, {}, {}
+    ms, launches, p1_launches, sk_launches, h0_launches = {}, {}, {}, {}, {}
 
     def stage(name, fn):
         before = h1_diagrams_cuda.launches
         before_p1 = phase1_cuda.launches
         before_sk = sinkhorn_tiered_cuda.launches
+        before_h0 = wasserstein_h0_cuda.launches
         out, ms[name] = wall_ms(fn)
         launches[name] = h1_diagrams_cuda.launches - before
         p1_launches[name] = phase1_cuda.launches - before_p1
         sk_launches[name] = sinkhorn_tiered_cuda.launches - before_sk
+        h0_launches[name] = wasserstein_h0_cuda.launches - before_h0
         return out
 
     agg, diag, ovf = stage("features", lambda: P.eeg_feature_program(
@@ -691,7 +724,7 @@ def main_path(batch, mis, cfg, dev):
     torch.cuda.synchronize()
     return dict(agg=agg, diag=diag, ovf=ovf, mo=mo, out=out, ms=ms,
                 launches=launches, phase1_launches=p1_launches,
-                sinkhorn_launches=sk_launches)
+                sinkhorn_launches=sk_launches, h0_launches=h0_launches)
 
 
 def float_ratio(got, ref, rtol):
@@ -772,32 +805,51 @@ def small_reference_check(dev, window_sec: float = 1.0, seed: int = 0):
     return bad, ratio, float((dist[0] - dist[1]).abs().max())
 
 
-def capture_sinkhorn_pairs(fn):
-    """Run fn() with the comparison's tiered-Sinkhorn router wrapped so that
-    the pairs it is given are kept (copies); returns the pairs of its last
-    call."""
-    from tda_eeg_audio_tpu_torch.models import programs as P
+def capture_calls(fn, *targets):
+    """Run fn() with each (module, name) function wrapped so that copies of
+    the tensors of every call are kept.  Returns (fn's result, one list of
+    argument tuples per target)."""
+    kept = [[] for _ in targets]
+    saved = [getattr(m, n) for m, n in targets]
 
-    route, kept = P._wass_sinkhorn_tiered, []
+    def wrap(route, store):
+        def keep(*args, **kw):
+            store.append(tuple(x.clone() for x in args))
+            return route(*args, **kw)
+        return keep
 
-    def keep(*args):
-        kept.append(tuple(x.clone() for x in args))
-        return route(*args)
-
-    P._wass_sinkhorn_tiered = keep
+    for (m, n), route, store in zip(targets, saved, kept):
+        setattr(m, n, wrap(route, store))
     try:
-        fn()
+        out = fn()
     finally:
-        P._wass_sinkhorn_tiered = route
-    return kept[-1]
+        for (m, n), route in zip(targets, saved):
+            setattr(m, n, route)
+    return out, kept
+
+
+def study_bars(rng, counts, K):
+    """Study-shaped H1 bars (births 0.3–1.5, exponential persistence of mean
+    0.15) with the given counts, scattered over K-slot rows (numpy)."""
+    import numpy as np
+
+    b = np.zeros((len(counts), K), np.float32)
+    d = np.zeros((len(counts), K), np.float32)
+    m = np.zeros((len(counts), K), bool)
+    for i, c in enumerate(counts):
+        pos = rng.choice(K, size=c, replace=False)
+        bb = rng.uniform(0.3, 1.5, c).astype(np.float32)
+        m[i, pos] = True
+        b[i, pos] = bb
+        d[i, pos] = bb + rng.exponential(0.15, c).astype(np.float32)
+    return b, d, m
 
 
 def sinkhorn_class_pairs(dev, per_class: int = 8, seed: int = 5):
     """Pairs that reach every width class of the kernel: bar counts per side
     at each class's edges (0 = the [[0, 0]] sentinel; 16 | 17, 40 | 41,
-    80 | 81; 90 and 96 at the full width), study-shaped bars (births
-    0.3–1.5, exponential persistence of mean 0.15) scattered over 96-slot
-    rows, made from a seed with numpy."""
+    80 | 81; 90 and 96 at the full width), study-shaped bars scattered over
+    96-slot rows (`study_bars`), made from a seed with numpy."""
     import numpy as np
     import torch
 
@@ -805,21 +857,8 @@ def sinkhorn_class_pairs(dev, per_class: int = 8, seed: int = 5):
               (40, 40), (41, 2), (80, 80), (81, 81), (90, 90), (96, 96),
               (96, 0)] * per_class
     rng = np.random.default_rng(seed)
-    K = 96
-    sides = []
-    for side in (0, 1):
-        b = np.zeros((len(counts), K), np.float32)
-        d = np.zeros((len(counts), K), np.float32)
-        m = np.zeros((len(counts), K), bool)
-        for i, cc in enumerate(counts):
-            c = cc[side]
-            pos = rng.choice(K, size=c, replace=False)
-            bb = rng.uniform(0.3, 1.5, c).astype(np.float32)
-            m[i, pos] = True
-            b[i, pos] = bb
-            d[i, pos] = bb + rng.exponential(0.15, c).astype(np.float32)
-        sides += [b, d, m]
-    return tuple(torch.as_tensor(x, device=dev) for x in sides)
+    sides = [study_bars(rng, [c[side] for c in counts], 96) for side in (0, 1)]
+    return tuple(torch.as_tensor(x, device=dev) for x in (*sides[0], *sides[1]))
 
 
 def sinkhorn_bound(pairs, clock_hz, chunk: int = 128):
@@ -952,13 +991,187 @@ def sinkhorn_kernel_check(main_pairs, dev, clock_hz):
     return res
 
 
+def plain_sinkhorn_log(pairs):
+    """The plain un-tiered Sinkhorn (`sinkhorn_cost` over `build_cost_matrix`)
+    on the pairs' device, in the router's pieces of SINKHORN_CHUNK pairs:
+    what the router runs for CPU tensors."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops.wasserstein import (SINKHORN_CHUNK, build_cost_matrix,
+                                                         sinkhorn_cost)
+
+    chunk = SINKHORN_CHUNK
+    return torch.cat([sinkhorn_cost(build_cost_matrix(*(x[c:c + chunk] for x in pairs)))
+                      for c in range(0, pairs[0].shape[0], chunk)])
+
+
+def sinkhorn_log_seeded_pairs(dev, n: int = 112, K: int = 128, seed: int = 11):
+    """Phase 13's second set: n pairs made from a seed with numpy, 0–K bars
+    a side drawn uniformly, the first four with side 1 empty, side 2 empty,
+    both empty and both full."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    c1, c2 = rng.integers(0, K + 1, n), rng.integers(0, K + 1, n)
+    c1[[0, 2, 3]], c2[[1, 2, 3]] = (0, 0, K), (0, 0, K)
+    return tuple(torch.as_tensor(x, device=dev)
+                 for x in (*study_bars(rng, c1, K), *study_bars(rng, c2, K)))
+
+
+def sinkhorn_log_bound(pairs, clock_hz):
+    """The un-tiered Sinkhorn's least time on these pairs: 481 S² expf a
+    pair (480 logsumexp half-steps and the result) over the SFU rate at the
+    card's max SM clock, S = n1 + n2 at each pair's own width (an empty side
+    is the one [[0, 0]] bar) and, as a reading, S = K1 + K2 at the pad
+    width; bytes (bars and masks read once, one float written a pair) over
+    HBM."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops.sinkhorn_log_cuda import HALF_STEPS
+
+    b1, _, m1, b2, _, m2 = pairs
+    N, K1, K2 = b1.shape[0], b1.shape[1], b2.shape[1]
+    S = (torch.clamp(m1.sum(1), min=1) + torch.clamp(m2.sum(1), min=1)).double().cpu()
+    rate = SFU_PER_SM_CLOCK * N_SMS * clock_hz
+    exps = float((S ** 2).sum()) * (HALF_STEPS + 1)
+    exps_pad = float(N * (K1 + K2) ** 2 * (HALF_STEPS + 1))
+    bytes_ = N * (K1 + K2) * 9 + N * 4
+    return dict(t_ops=exps / rate * 1e3, t_ops_pad=exps_pad / rate * 1e3,
+                t_bytes=bytes_ / HBM_BYTES_PER_S * 1e3, exps=exps, exps_pad=exps_pad,
+                bytes=bytes_, S_mean=float(S.mean()), S_max=int(S.max()),
+                S_pad=K1 + K2)
+
+
+def sinkhorn_log_check(sets, clock_hz):
+    """Phase 13, kernel A: the un-tiered Sinkhorn kernel through its router
+    (`sinkhorn_cost_pairs`) against the plain version on the card, on each
+    set of pairs: within SINKHORN_LOG_RTOL of each plain float32 value and
+    SINKHORN_LOG_F64_RTOL of a float64 run of the plain version, the same
+    NaN / inf pattern, one launch a call; timed (CUDA events), the plain
+    version timed, peak device memory a call of both, the bound at each
+    pair's own width and at the pad width; once under
+    `torch.cuda.set_sync_debug_mode("error")`.  The launches made here are
+    not counted."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops import sinkhorn_log_cuda as SL
+    from tda_eeg_audio_tpu_torch.ops.wasserstein import sinkhorn_cost_pairs
+
+    launches0 = SL.sinkhorn_log_cuda.launches
+    res = {"layout": SL.layout_report()}
+    for name, pairs in sets.items():
+        before = SL.sinkhorn_log_cuda.launches
+        got = sinkhorn_cost_pairs(*pairs)
+        per_call = SL.sinkhorn_log_cuda.launches - before
+        ref, plain_ms = wall_ms(lambda: plain_sinkhorn_log(pairs))
+        r64 = plain_sinkhorn_log([x.double() if x.is_floating_point() else x
+                                  for x in pairs])
+        g, r, r64 = got.double().cpu(), ref.double().cpu(), r64.cpu()
+        fin = torch.isfinite(r)
+        err, err64 = (g - r).abs()[fin], (g - r64).abs()[fin]
+        nz = r[fin] != 0
+
+        def rel(e, y):
+            return float((e[nz] / y[fin][nz].abs()).max()) if bool(nz.any()) else 0.0
+
+        b1, d1, m1, b2, d2, m2 = pairs
+        nan_bars = ((m1 & ~(torch.isfinite(b1) & torch.isfinite(d1))).any(1)
+                    | (m2 & ~(torch.isfinite(b2) & torch.isfinite(d2))).any(1))
+        res[name] = dict(
+            pairs=int(g.numel()), launches_per_call=per_call,
+            nonfinite_bar_pairs=int(nan_bars.sum()),
+            same_nonfinite=bool(torch.equal(torch.isfinite(g), fin)),
+            within=bool((err <= SINKHORN_LOG_RTOL * r[fin].abs()).all()),
+            within_float64=bool((err64 <= SINKHORN_LOG_F64_RTOL * r64[fin].abs()).all()),
+            max_abs_err=float(err.max()) if err.numel() else 0.0,
+            max_rel_err=rel(err, r), max_rel_err_vs_float64=rel(err64, r64),
+            plain_vs_float64=rel((r - r64).abs()[fin], r64),
+            ms=cuda_ms(lambda: sinkhorn_cost_pairs(*pairs), reps=5), plain_ms=plain_ms,
+            peak_bytes=peak_bytes(lambda: sinkhorn_cost_pairs(*pairs)),
+            plain_peak_bytes=peak_bytes(lambda: plain_sinkhorn_log(pairs)),
+            **sinkhorn_log_bound(pairs, clock_hz))
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pairs in sets.values():
+            sinkhorn_cost_pairs(*pairs)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    res["no_host_sync"] = True
+    SL.sinkhorn_log_cuda.launches = launches0
+    return res
+
+
+def h0_staged_inputs(dev, n: int = 256, seed: int = 13):
+    """Phase 13's staged set for kernel B: n pairs of H0 deaths at the staged
+    path's pads (64 / 128), ~70 % of the slots valid, made from a seed with
+    numpy: side 1 all pad, side 2 all pad, both all pad, a single bar
+    against a single bar, a single bar against a full side, and tied
+    deaths."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d1 = rng.exponential(0.5, (n, 64)).astype(np.float32)
+    d2 = rng.exponential(0.5, (n, 128)).astype(np.float32)
+    m1, m2 = rng.random((n, 64)) < 0.7, rng.random((n, 128)) < 0.7
+    m1[0] = m2[1] = m1[2] = m2[2] = False
+    m1[3], m2[3] = np.arange(64) == 7, np.arange(128) == 100
+    m1[4], m2[4] = np.arange(64) == 0, True
+    d1[5:9], d2[5:9] = np.round(d1[5:9] * 8) / 8, np.round(d2[5:9] * 8) / 8
+    return tuple(torch.as_tensor(x, device=dev) for x in (d1, m1, d2, m2))
+
+
+def h0_check(sets):
+    """Phase 13, kernel B: the exact H0 DP kernel through its router
+    (`wasserstein_h0_exact`) against the plain loop on the card within
+    H0_RTOL, one launch a call; bit for bit against the plain loop on the
+    CPU (a reading); timed (CUDA events), the plain loop timed, the bound by
+    bytes (deaths and masks read once, one float written a pair).  The
+    launches made here are not counted."""
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_h0_cuda as WH
+    from tda_eeg_audio_tpu_torch.ops.wasserstein import (wasserstein_h0_exact,
+                                                         wasserstein_h0_exact_plain)
+
+    launches0 = WH.wasserstein_h0_cuda.launches
+    res = {"layout": WH.layout_report()}
+    for name, args in sets.items():
+        before = WH.wasserstein_h0_cuda.launches
+        got = wasserstein_h0_exact(*args)
+        per_call = WH.wasserstein_h0_cuda.launches - before
+        ref, plain_ms = wall_ms(lambda: wasserstein_h0_exact_plain(*args))
+        cpu = wasserstein_h0_exact_plain(*(x.cpu() for x in args))
+        g, r = got.double().cpu(), ref.double().cpu()
+        err = (g - r).abs()
+        N, K1, K2 = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+        bytes_ = N * (K1 + K2) * 5 + N * 4
+        # the DP's cells at ~8 float32 operations each and the sorts'
+        # compares, at the FP32 rate (a reading beside the bytes)
+        ops = N * (8 * K1 * (K2 + 1) + K1 * K1 + K2 * K2)
+        res[name] = dict(
+            pairs=N, K=(K1, K2), launches_per_call=per_call,
+            within=bool((err <= H0_RTOL * r.abs()).all()),
+            finite=bool(torch.isfinite(g).all()),
+            max_abs_err=float(err.max()), bit_for_bit_vs_cpu=bool(torch.equal(got.cpu(), cpu)),
+            ms=cuda_ms(lambda: wasserstein_h0_exact(*args), reps=20), plain_ms=plain_ms,
+            t_bytes=bytes_ / HBM_BYTES_PER_S * 1e3, t_ops=ops / FP32_FLOPS_PER_S * 1e3)
+    WH.wasserstein_h0_cuda.launches = launches0
+    return res
+
+
 def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
-                 feature_na_max=NA_FEAT, comparison_spans=False):
+                 feature_na_max=NA_FEAT, comparison_spans=False,
+                 control_spans=False):
     """The whole study on the store through the runner's three entry points
     at the given knobs, each stage between two device synchronisations, the
-    kernel's launch count zeroed just before and read per stage; with
-    `comparison_spans`, the comparison stage's parts timed by its own spans
-    (summed over its batches).  Returns (report, problems, X, the
+    kernels' launch counts zeroed just before and read per stage; with
+    `comparison_spans` / `control_spans`, that stage's parts timed by its
+    own spans (summed over its batches; every span synchronises, so the
+    stage's seconds then include them).  Returns (report, problems, X, the
     comparison's detailed rows)."""
     import numpy as np
 
@@ -967,32 +1180,33 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
     from tda_eeg_audio_tpu_torch.ops.iir_cuda import sosfiltfilt_bank_cuda
     from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
+    from tda_eeg_audio_tpu_torch.ops.sinkhorn_log_cuda import sinkhorn_log_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
+    from tda_eeg_audio_tpu_torch.ops.wasserstein_h0_cuda import wasserstein_h0_cuda
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     n_rec = len(store)
-    secs, launches, p1_launches, iir_launches, sk_launches = {}, {}, {}, {}, {}
+    wrappers = dict(launches=h1_diagrams_cuda, phase1_launches=phase1_cuda,
+                    sosfiltfilt_launches=sosfiltfilt_bank_cuda,
+                    sinkhorn_launches=sinkhorn_tiered_cuda,
+                    sinkhorn_log_launches=sinkhorn_log_cuda,
+                    h0_launches=wasserstein_h0_cuda)
+    counts = {k: {} for k in wrappers}
+    secs = {}
     with tempfile.TemporaryDirectory() as td:
         runner = StudyRunner(store, cfg, eeg_batch=eeg_batch,
                              eeg_bank=eeg_bank, feature_na_max=feature_na_max,
                              results_dir=td, verbose=False)
         redone0 = run_tda.redone
-        h1_diagrams_cuda.launches = 0
-        phase1_cuda.launches = 0
-        sosfiltfilt_bank_cuda.launches = 0
-        sinkhorn_tiered_cuda.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
 
         def stage(name, fn):
-            before = h1_diagrams_cuda.launches
-            before_p1 = phase1_cuda.launches
-            before_iir = sosfiltfilt_bank_cuda.launches
-            before_sk = sinkhorn_tiered_cuda.launches
+            before = {k: w.launches for k, w in wrappers.items()}
             out, ms = wall_ms(fn)
             secs[name] = ms / 1e3
-            launches[name] = h1_diagrams_cuda.launches - before
-            p1_launches[name] = phase1_cuda.launches - before_p1
-            iir_launches[name] = sosfiltfilt_bank_cuda.launches - before_iir
-            sk_launches[name] = sinkhorn_tiered_cuda.launches - before_sk
+            for k, w in wrappers.items():
+                counts[k][name] = w.launches - before[k]
             return out
 
         X, y, subjects, filenames, meta = stage(
@@ -1001,11 +1215,14 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
         with spans as parts:
             cmp_out = stage("comparison",
                             lambda: runner.run_comparison(n_permutations=1000))
-        ctl = stage("control", runner.run_control)
-        total = h1_diagrams_cuda.launches
-        total_p1 = phase1_cuda.launches
-        total_iir = sosfiltfilt_bank_cuda.launches
-        total_sk = sinkhorn_tiered_cuda.launches
+        spans = timed_spans() if control_spans else contextlib.nullcontext()
+        with spans as control_parts:
+            ctl = stage("control", runner.run_control)
+        totals = {k: w.launches for k, w in wrappers.items()}
+        launches, p1_launches = counts["launches"], counts["phase1_launches"]
+        iir_launches, sk_launches = counts["sosfiltfilt_launches"], counts["sinkhorn_launches"]
+        total, total_p1 = totals["launches"], totals["phase1_launches"]
+        total_iir, total_sk = totals["sosfiltfilt_launches"], totals["sinkhorn_launches"]
         artifacts = sorted(p.name for p in Path(td).iterdir())
     rows = cmp_out["detailed_rows"]
     problems = []
@@ -1043,6 +1260,12 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
         problems.append(f"sinkhorn_tiered launches by stage {sk_launches}")
     if runner.redo_counts["control_deviants"] < 1:
         problems.append("the control's exact redo did not run")
+    # the exact H0 DP: one launch a comparison batch (and one a batch of the
+    # overflow redo); the control's exact redo runs the un-tiered Sinkhorn
+    if counts["h0_launches"]["comparison"] < -(-n_rec // eeg_batch):
+        problems.append(f"wasserstein_h0 launches by stage {counts['h0_launches']}")
+    if counts["sinkhorn_log_launches"]["control"] < 1:
+        problems.append(f"sinkhorn_log launches by stage {counts['sinkhorn_log_launches']}")
     expect = {"eeg_audio_tda_comparison.json", "eeg_audio_tda_detailed.csv",
               "matched_vs_mismatched.json"}
     if set(artifacts) != expect:
@@ -1055,7 +1278,11 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                   sosfiltfilt_launches=iir_launches,
                   sosfiltfilt_launches_total=total_iir,
                   sinkhorn_launches=sk_launches,
-                  sinkhorn_launches_total=total_sk, K=meta["K"],
+                  sinkhorn_launches_total=total_sk,
+                  sinkhorn_log_launches=counts["sinkhorn_log_launches"],
+                  sinkhorn_log_launches_total=totals["sinkhorn_log_launches"],
+                  h0_launches=counts["h0_launches"],
+                  h0_launches_total=totals["h0_launches"], K=meta["K"],
                   bank_served=runner._bank_served,
                   bank_fallback=runner._bank_fallback,
                   control_deviants_redone=runner.redo_counts["control_deviants"],
@@ -1068,6 +1295,8 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                   control_p={b: ctl[b]["p"] for b in BAND_NAMES})
     if comparison_spans:
         report["comparison_spans_ms"] = dict(parts)
+    if control_spans:
+        report["control_spans_ms"] = dict(control_parts)
     return report, problems, X, rows
 
 
@@ -1289,7 +1518,9 @@ def cli_phase():
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
     from tda_eeg_audio_tpu_torch.ops.homology_cuda import h1_diagrams_cuda
     from tda_eeg_audio_tpu_torch.ops.phase1_cuda import phase1_cuda
+    from tda_eeg_audio_tpu_torch.ops.sinkhorn_log_cuda import sinkhorn_log_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
+    from tda_eeg_audio_tpu_torch.ops.wasserstein_h0_cuda import wasserstein_h0_cuda
 
     report, problems = {}, []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1310,6 +1541,8 @@ def cli_phase():
             h1_diagrams_cuda.launches = 0
             phase1_cuda.launches = 0
             sinkhorn_tiered_cuda.launches = 0
+            sinkhorn_log_cuda.launches = 0
+            wasserstein_h0_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -1321,6 +1554,8 @@ def cli_phase():
                                 launches=h1_diagrams_cuda.launches,
                                 phase1_launches=phase1_cuda.launches,
                                 sinkhorn_launches=sinkhorn_tiered_cuda.launches,
+                                sinkhorn_log_launches=sinkhorn_log_cuda.launches,
+                                h0_launches=wasserstein_h0_cuda.launches,
                                 windows_redone=run_tda.redone - redone0,
                                 said=lines[-1] if lines else "")
             if rc != 0:
@@ -1402,12 +1637,15 @@ def cli_phase():
             exact_vs_sinkhorn[band] = dict(max_abs_rel=float(np.abs(rel).max()),
                                            mean_abs_rel=float(np.abs(rel).mean()),
                                            mean_rel=float(rel.mean()))
-        ctl = run("control_exact", "control", "ctl", "--wasserstein", "exact",
-                  "--backend", "device")
-        res = json.loads((ctl / "matched_vs_mismatched.json").read_text())
-        need(list(res) == list(BANDS) and all(
-            "n" in res[b] and set(res[b].get("by_condition", {})) == {"slow", "fast"}
-            for b in BANDS), "matched_vs_mismatched.json keys")
+        # the control: the fused pass and its deviants' exact pairing by the
+        # un-tiered Sinkhorn kernel, then exact matching on the host
+        for name, extra in (("control", ()), ("control_exact", (
+                "--wasserstein", "exact", "--backend", "device"))):
+            ctl = run(name, "control", name, *extra)
+            res = json.loads((ctl / "matched_vs_mismatched.json").read_text())
+            need(list(res) == list(BANDS) and all(
+                "n" in res[b] and set(res[b].get("by_condition", {})) == {"slow", "fast"}
+                for b in BANDS), f"{name}: matched_vs_mismatched.json keys")
 
         # EDA
         eda = run("eda", "eda", "eda")
@@ -1422,10 +1660,18 @@ def cli_phase():
     # host backend and the commands without diagrams launch none
     for name, r in report.items():
         on_card = name in ("features", "features_partial_0", "features_partial_1",
-                           "compare", "compare_exact", "control_exact")
+                           "compare", "compare_exact", "control", "control_exact")
         if (r["launches"] > 0) != on_card or r["phase1_launches"] != r["launches"]:
             problems.append(f"{name}: {r['launches']} h1_reduce and "
                             f"{r['phase1_launches']} h1_phase1 launches")
+        # the fused Sinkhorn path's comparison runs the exact H0 DP on the
+        # card; the exact commands match H0 on the host
+        if (r["h0_launches"] > 0) != (name in ("compare", "control")):
+            problems.append(f"{name}: {r['h0_launches']} wasserstein_h0 launches")
+        # only the control's exact redo, and the comparison's overflow redo,
+        # reach the un-tiered Sinkhorn
+        if r["sinkhorn_log_launches"] and name not in ("compare", "control"):
+            problems.append(f"{name}: {r['sinkhorn_log_launches']} sinkhorn_log launches")
     return report, exact_vs_sinkhorn, x_ratio, problems
 
 
@@ -1696,8 +1942,12 @@ def main() -> int:
     from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_cuda as HC
     from tda_eeg_audio_tpu_torch.ops import iir_cuda as IC
+    from tda_eeg_audio_tpu_torch.models import programs as P
+    from tda_eeg_audio_tpu_torch.models import study as study_mod
     from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
+    from tda_eeg_audio_tpu_torch.ops import sinkhorn_log_cuda as SL
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
+    from tda_eeg_audio_tpu_torch.ops import wasserstein_h0_cuda as WH
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     t_start = time.perf_counter()
@@ -1712,13 +1962,15 @@ def main() -> int:
     _, nvcc_s = cuda_build.build_libraries(
         [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()),
          (P1.SRC, P1.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ()),
-         (WC.SRC, WC.PROFILE_FLAGS)], verbose=True)
+         (WC.SRC, WC.PROFILE_FLAGS), (SL.SRC, ()), (WH.SRC, ())], verbose=True)
     HC._load()
     P1._load()
     P1._load(profile=True)
     IC._load()
     WC._load()
     WC._load(profile=True)
+    SL._load()
+    WH._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{nvcc_s if nvcc_s is not None else 'cached'})", flush=True)
 
@@ -1828,18 +2080,27 @@ def main() -> int:
     # ── phase 4: the main path, its comparison stage's parts timed ──
     # warm-up (cuFFT plans etc.), keeping the pairs the comparison hands to
     # the tiered Sinkhorn for phase 4b
-    sk_pairs = capture_sinkhorn_pairs(lambda: main_path(batch, mis, cfg, dev))
+    # and its exact H0 DP for phase 13
+    _, (sk_calls, h0_calls) = capture_calls(
+        lambda: main_path(batch, mis, cfg, dev), (P, "_wass_sinkhorn_tiered"),
+        (P, "wasserstein_h0_exact"))
+    sk_pairs, h0_main = sk_calls[-1], h0_calls[-1]
     HC.h1_diagrams_cuda.launches = 0
     P1.phase1_cuda.launches = 0
     WC.sinkhorn_tiered_cuda.launches = 0
+    WH.wasserstein_h0_cuda.launches = 0
+    SL.sinkhorn_log_cuda.launches = 0
     with timed_spans() as parts:
         res = main_path(batch, mis, cfg, dev)
     total = HC.h1_diagrams_cuda.launches
     p1_total = P1.phase1_cuda.launches
     sk_total = WC.sinkhorn_tiered_cuda.launches
+    h0_total = WH.wasserstein_h0_cuda.launches
+    sl_total = SL.sinkhorn_log_cuda.launches
     launches = res["launches"]
     p1_launches = res["phase1_launches"]
     sk_launches = res["sinkhorn_launches"]
+    h0_launches = res["h0_launches"]
     out, mo = res["out"], res["mo"]
     expect = dict(agg=(B_REC, 5, 2, 11, 2), diag=(B_REC, 5, 8), ovf=(B_REC,))
     problems = [f"{k} shape {tuple(res[k].shape)}" for k, s in expect.items()
@@ -1864,6 +2125,9 @@ def main() -> int:
     # one tiered Sinkhorn call per batch, in the comparison stage only
     if sk_launches["comparison"] <= 0 or sk_total != sk_launches["comparison"]:
         problems.append(f"sinkhorn_tiered launches by stage {sk_launches}")
+    # one exact H0 DP launch per batch, in the comparison stage only
+    if h0_launches["comparison"] != 1 or h0_total != 1:
+        problems.append(f"wasserstein_h0 launches by stage {h0_launches}")
     ms = res["ms"]
     n_feat_win = B_REC * 5 * K_FEAT
     n_cmp_win = B_REC * 5 * K_CMP
@@ -1880,8 +2144,10 @@ def main() -> int:
           flush=True)
     print(f"kernel launches on the main path: h1_reduce {total} (by stage "
           f"{launches}), h1_phase1 {p1_total} (by stage {p1_launches}), "
-          f"sinkhorn_tiered {sk_total} per batch (by stage {sk_launches})",
-          flush=True)
+          f"sinkhorn_tiered {sk_total} per batch (by stage {sk_launches}), "
+          f"wasserstein_h0 {h0_total} per batch (by stage {h0_launches}), "
+          f"sinkhorn_log {sl_total} (the entry points redo no overflow; the "
+          f"runner does, phase 6)", flush=True)
     print("comparison parts (wall ms, timed spans): " + json.dumps(
         {k: round(v, 2) for k, v in parts.items()}), flush=True)
     print("w_h1 band means: " + json.dumps(
@@ -1954,14 +2220,27 @@ def main() -> int:
     cut = 10_937
     store.audio[0, store.ns_a[0] - cut:store.ns_a[0]] = 0.0
     store.ns_a[0] -= cut
-    report, problems, x_fir, _ = runner_phase(store, cfg)
+    # the control stage's parts timed by its spans; the pairs its exact
+    # redo hands the un-tiered Sinkhorn kept for phase 13
+    (report, problems, x_fir, _), (wass_calls,) = capture_calls(
+        lambda: runner_phase(store, cfg, control_spans=True),
+        (study_mod, "sinkhorn_cost_pairs"))
     runner_launches = report["launches_total"]
     print(f"runner ({report['recordings']} recordings, store {store_gb:.2f} GB "
           f"generated on the card in {ingest_ms / 1e3:.1f} s): "
           + json.dumps(report), flush=True)
+    print(f"control stage (96 recordings, spans on): {report['seconds']['control']:.4f} s, "
+          f"{report['control_deviants_redone']} deviants redone in "
+          f"{len(wass_calls)} un-tiered Sinkhorn call(s) of "
+          f"{[int(c[0].shape[0]) for c in wass_calls]} pairs; spans (ms): "
+          + json.dumps({k: round(v, 3) for k, v in report["control_spans_ms"].items()}),
+          flush=True)
+    if not wass_calls:
+        problems.append("the control's exact redo handed no pairs to the un-tiered Sinkhorn")
     if problems:
         print(f"FAIL: runner: {problems}", file=sys.stderr)
         return 1
+    ctl_pairs = tuple(torch.cat([c[k] for c in wass_calls]) for k in range(6))
 
     # ── phase 7: bank path against in-call path on the card ──
     bad, ratio = bank_vs_in_call(store, cfg)
@@ -1988,6 +2267,8 @@ def main() -> int:
                                 launches=r["launches"],
                                 phase1_launches=r["phase1_launches"],
                                 sinkhorn_launches=r["sinkhorn_launches"],
+                                sinkhorn_log_launches=r["sinkhorn_log_launches"],
+                                h0_launches=r["h0_launches"],
                                 windows_redone=r["windows_redone"])
                         for k, r in cli_report.items()}), flush=True)
     print("cli said: " + json.dumps({k: r["said"] for k, r in cli_report.items()}),
@@ -2076,6 +2357,49 @@ def main() -> int:
         print("runner at the tuned knobs vs the defaults: not run, tuning.json "
               "holds the defaults", flush=True)
     del store
+
+    # ── phase 13: the un-tiered Sinkhorn and the exact H0 DP vs plain ──
+    sl = sinkhorn_log_check({"control": ctl_pairs,
+                             "seeded": sinkhorn_log_seeded_pairs(dev)}, clock_hz)
+    for name in ("control", "seeded"):
+        r = sl[name]
+        print(f"sinkhorn_log vs plain {name} ({r['pairs']} pairs, S mean "
+              f"{r['S_mean']:.1f} max {r['S_max']} at the pairs' own width, pad "
+              f"{r['S_pad']}): {r['launches_per_call']} launch(es) a call, "
+              f"max_rel_err {r['max_rel_err']:.3e} (rtol {SINKHORN_LOG_RTOL}, margin "
+              f"{SINKHORN_LOG_RTOL - r['max_rel_err']:.3e}, within {r['within']}; the "
+              f"plain version's own distance from float64 {r['plain_vs_float64']:.3e}), "
+              f"vs float64 {r['max_rel_err_vs_float64']:.3e} (rtol "
+              f"{SINKHORN_LOG_F64_RTOL}, within {r['within_float64']}: the gate that "
+              f"tells a wrong kernel), pairs with a non-finite bar "
+              f"{r['nonfinite_bar_pairs']}, max_abs_err {r['max_abs_err']:.3e}, "
+              f"same NaN / inf {r['same_nonfinite']}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, peak {r['peak_bytes'] / 1e6:.3f} MB a call "
+              f"(plain {r['plain_peak_bytes'] / 1e6:.1f} MB), bound: expf at the "
+              f"own width {r['t_ops']:.4f} ms, at the pad width {r['t_ops_pad']:.4f} "
+              f"ms, bytes {r['t_bytes']:.5f} ms", flush=True)
+    print(f"sinkhorn_log under set_sync_debug_mode('error'): no host "
+          f"synchronisation ({sl['no_host_sync']}); layout as the library reports "
+          f"it: {json.dumps(sl['layout'])}", flush=True)
+    h0 = h0_check({"main": h0_main, "staged": h0_staged_inputs(dev)})
+    for name in ("main", "staged"):
+        r = h0[name]
+        print(f"wasserstein_h0 vs plain {name} ({r['pairs']} pairs at {r['K']}): "
+              f"{r['launches_per_call']} launch(es) a call, max_abs_err "
+              f"{r['max_abs_err']:.3e} (rtol {H0_RTOL}, within {r['within']}), bit for "
+              f"bit vs the plain loop on the CPU {r['bit_for_bit_vs_cpu']}, kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound bytes "
+              f"{r['t_bytes']:.5f} ms / operations {r['t_ops']:.5f} ms", flush=True)
+    print(f"wasserstein_h0 layout as the library reports it: {json.dumps(h0['layout'])}",
+          flush=True)
+    bad = [k for k in ("control", "seeded") if not (
+        sl[k]["within"] and sl[k]["within_float64"] and sl[k]["same_nonfinite"]
+        and sl[k]["launches_per_call"] == 1)]
+    bad += [k for k in ("main", "staged") if not (
+        h0[k]["within"] and h0[k]["finite"] and h0[k]["launches_per_call"] == 1)]
+    if bad or h0["main"]["pairs"] != B_REC * 5 * K_CMP:
+        print(f"FAIL: phase 13 kernels vs plain: {bad}", file=sys.stderr)
+        return 1
 
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
@@ -2195,7 +2519,64 @@ def main() -> int:
                         max_rel_err_vs_float64=sk[k]["rounding"]["kernel_vs_float64"])
                 for k in ("main", "classes")},
         layout=sk["layout"], phases=sk["main"]["phases"],
-        no_host_sync=sk["no_host_sync"], held_against_plain=True)]
+        no_host_sync=sk["no_host_sync"], held_against_plain=True),
+        dict(
+        name="sinkhorn_log", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/sinkhorn_log.cu",
+        replaces="tda_eeg_audio_tpu/ops/wasserstein.py:93 sinkhorn_cost (XLA, not Pallas)",
+        launches=sl_total + report["sinkhorn_log_launches_total"]
+        + sum(r["sinkhorn_log_launches"] for r in cli_report.values())
+        + iir_report["sinkhorn_log_launches_total"]
+        + sum(r["sinkhorn_log_launches_total"] for r in (knob_reports or {}).values()),
+        launches_by_path=dict(
+            one_batch=sl_total, runner=report["sinkhorn_log_launches"],
+            cli={k: r["sinkhorn_log_launches"] for k, r in cli_report.items()},
+            runner_iir_scan=iir_report["sinkhorn_log_launches"],
+            runner_knobs={k: r["sinkhorn_log_launches"] for k, r in
+                          (knob_reports or {}).items()}),
+        max_abs_err=max(sl[k]["max_abs_err"] for k in ("control", "seeded")),
+        max_rel_err=max(sl[k]["max_rel_err"] for k in ("control", "seeded")),
+        ms=sl["control"]["ms"], plain_ms=sl["control"]["plain_ms"],
+        bound_ms=max(sl["control"]["t_bytes"], sl["control"]["t_ops"]),
+        bound_by="bytes" if sl["control"]["t_bytes"] >= sl["control"]["t_ops"]
+        else "operations", library_ms=None,
+        by_set={k: dict(pairs=sl[k]["pairs"], ms=sl[k]["ms"], plain_ms=sl[k]["plain_ms"],
+                        bound_ms=max(sl[k]["t_bytes"], sl[k]["t_ops"]),
+                        bound_ms_at_pad_width=sl[k]["t_ops_pad"],
+                        S_mean=sl[k]["S_mean"], S_max=sl[k]["S_max"],
+                        peak_bytes=sl[k]["peak_bytes"],
+                        plain_peak_bytes=sl[k]["plain_peak_bytes"],
+                        max_rel_err=sl[k]["max_rel_err"],
+                        max_rel_err_vs_float64=sl[k]["max_rel_err_vs_float64"],
+                        plain_vs_float64=sl[k]["plain_vs_float64"],
+                        nonfinite_bar_pairs=sl[k]["nonfinite_bar_pairs"])
+                for k in ("control", "seeded")},
+        layout=sl["layout"], no_host_sync=sl["no_host_sync"], held_against_plain=True),
+        dict(
+        name="wasserstein_h0", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/wasserstein_h0.cu",
+        replaces="tda_eeg_audio_tpu/ops/wasserstein.py:190 wasserstein_h0_exact "
+                 "(XLA, not Pallas)",
+        launches=h0_total + report["h0_launches_total"]
+        + sum(r["h0_launches"] for r in cli_report.values())
+        + iir_report["h0_launches_total"]
+        + sum(r["h0_launches_total"] for r in (knob_reports or {}).values()),
+        launches_by_path=dict(
+            one_batch=h0_launches, runner=report["h0_launches"],
+            cli={k: r["h0_launches"] for k, r in cli_report.items()},
+            runner_iir_scan=iir_report["h0_launches"],
+            runner_knobs={k: r["h0_launches"] for k, r in (knob_reports or {}).items()}),
+        max_abs_err=max(h0[k]["max_abs_err"] for k in ("main", "staged")),
+        ms=h0["main"]["ms"], plain_ms=h0["main"]["plain_ms"],
+        bound_ms=max(h0["main"]["t_bytes"], h0["main"]["t_ops"]),
+        bound_by="bytes" if h0["main"]["t_bytes"] >= h0["main"]["t_ops"]
+        else "operations", library_ms=None,
+        by_set={k: dict(pairs=h0[k]["pairs"], K=h0[k]["K"], ms=h0[k]["ms"],
+                        plain_ms=h0[k]["plain_ms"],
+                        bound_ms=max(h0[k]["t_bytes"], h0[k]["t_ops"]),
+                        bit_for_bit_vs_cpu=h0[k]["bit_for_bit_vs_cpu"])
+                for k in ("main", "staged")},
+        layout=h0["layout"], held_against_plain=True)]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -10,7 +10,9 @@ plain PyTorch path).  Every H1 computation goes through
 `h1_diagrams_routed`, which sends CUDA tensors to the hand-written kernel
 and CPU tensors to the plain reduction; the comparison's H1 Wasserstein
 goes through `_wass_sinkhorn_tiered`, which sends CUDA tensors to the tiered
-Sinkhorn kernel and CPU tensors to its plain version.  Overflow is flagged
+Sinkhorn kernel and CPU tensors to its plain version, and its H0
+Wasserstein through `ops.wasserstein.wasserstein_h0_exact`, likewise the
+exact-DP kernel or the plain loop.  Overflow is flagged
 here; the runner (`models/study.py`) redoes flagged recordings exactly
 through `models/homology_exec.run_tda`.
 """

@@ -46,9 +46,8 @@ from ..io.synthetic import window_sample_indices
 from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std
 from ..ops.signal import resample_n_out
-from ..ops.wasserstein import (build_cost_matrix, sinkhorn_cost,
-                               wasserstein_h0_exact)
-from ..runtime import resolve_device
+from ..ops.wasserstein import sinkhorn_cost_pairs, wasserstein_h0_exact
+from ..runtime import resolve_device, span
 from ..utils import logging as tlog
 from ..utils.profiling import GLOBAL_TIMES
 from ..utils.validation import issues_from_diagnostics, matrix_diagnostics
@@ -67,7 +66,6 @@ FEATS = ("mean_persistence", "total_persistence", "persistence_entropy",
 # their columns among the 11 diagram features
 FEAT_COLS = {"mean_persistence": 6, "total_persistence": 9,
              "persistence_entropy": 10, "max_persistence": 8, "n_features": 0}
-WASS_CHUNK = 512    # pairs per un-tiered Sinkhorn call
 WASSERSTEIN_BACKENDS = ("sinkhorn", "host_exact")
 
 
@@ -616,7 +614,8 @@ class StudyRunner:
         rows = []
         for b0 in range(0, len(all_idx), self.eeg_batch):
             idxs = all_idx[b0:b0 + self.eeg_batch]
-            d = self._own_diagrams(idxs)
+            with span("control_own_diagrams", self.device):
+                d = self._own_diagrams(idxs)
             e_b, e_d, e_m = (x.cpu().numpy() for x in self._h1_padded(d["eeg"]))
             a_b, a_d, a_m = (x.cpu().numpy() for x in self._h1_padded(d["audio"]))
             pairs_e, groups, pend = [], [], []
@@ -650,10 +649,11 @@ class StudyRunner:
                                 pa[k].append(mis[k][bd, compm[i]])
                             groups.append((ridx, "w_mismatched"))
             if pairs_e:
-                w = self._wass_chunks(
-                    *(self._dev(x[pairs_e]) for x in (e_b, e_d, e_m)),
-                    *(self._dev(np.stack(pa[k])) for k in ("b", "d", "m"))
-                ).cpu().numpy()
+                with span("control_wass_h1", self.device):
+                    w = self._wass_chunks(
+                        *(self._dev(x[pairs_e]) for x in (e_b, e_d, e_m)),
+                        *(self._dev(np.stack(pa[k])) for k in ("b", "d", "m"))
+                    ).cpu().numpy()
                 sums, cnts = defaultdict(float), defaultdict(int)
                 for key, val in zip(groups, w):
                     if np.isfinite(val):          # reference nanmean
@@ -690,17 +690,15 @@ class StudyRunner:
         """Wasserstein distances (persim semantics) of (N, K) padded diagram
         pairs: with "host_exact" the exact assignment on the host
         (`native.engine.wasserstein_batch`, persim's Hungarian matching),
-        with "sinkhorn" the un-tiered Sinkhorn on the device at full width,
-        WASS_CHUNK pairs per call.  Returns (N,) on the inputs' device."""
+        with "sinkhorn" the un-tiered log-domain Sinkhorn
+        (`sinkhorn_cost_pairs`: on the CPU the plain version in pieces, on
+        the card one kernel launch).  Returns (N,) on the inputs' device."""
         if self.cfg.wasserstein_backend == "host_exact":
             from ..native.engine import wasserstein_batch
 
             w = wasserstein_batch(*(x.cpu().numpy() for x in (b1, d1, m1, b2, d2, m2)))
             return torch.as_tensor(w, device=b1.device)
-        outs = [sinkhorn_cost(build_cost_matrix(
-            *(x[c:c + WASS_CHUNK] for x in (b1, d1, m1, b2, d2, m2))))
-            for c in range(0, b1.shape[0], WASS_CHUNK)]
-        return torch.cat(outs) if outs else b1.new_zeros(0)
+        return sinkhorn_cost_pairs(b1, d1, m1, b2, d2, m2)
 
     # ---------------- the fused comparison pass ----------------
 
@@ -1193,10 +1191,13 @@ class StudyRunner:
         if self._fused:
             rows = self._control_rows_fused(all_idx, mis_idx)
         else:
-            mis_cache = self._mismatch_own_cache(sorted(set(mis_idx.values())))
-            rows = self._control_rows_exact(all_idx, mis_idx, mis_cache)
+            with span("control_mismatch_cache", self.device):
+                mis_cache = self._mismatch_own_cache(sorted(set(mis_idx.values())))
+            with span("control_exact_rows", self.device):
+                rows = self._control_rows_exact(all_idx, mis_idx, mis_cache)
         tlog.LOGGER.stage("control_rows", time.time() - t0, items=len(rows))
-        return self._control_stats(rows)
+        with span("control_stats", self.device):
+            return self._control_stats(rows)
 
     def _control_rows_fused(self, all_idx, mis_idx):
         """Control rows from the fused comparison pass + exact redo of
@@ -1209,33 +1210,35 @@ class StudyRunner:
         Recordings where they differ (unequal counts, any matched/mismatch
         degenerate, overflow, zero windows on either side or in the
         mismatch partner) go through `_control_rows_exact`."""
-        frows = self._fused_rows()
+        with span("control_fused_rows", self.device):
+            frows = self._fused_rows()
         fmap = {(r["filename"], r["condition"], r["band"]): r for r in frows}
         win, step = self.cfg.win_samples, self.cfg.step_samples
         deviants, rows = [], []
-        for i in all_idx:
-            fn, subj, cond = self.ds.index[i]
-            n_e, failed = self._rec_length(i)
-            if failed:
-                continue
-            n_win_e = max((n_e - win) // step + 1, 0)
-            n_win_a = self._audio_window_count(i)
-            brows = [fmap.get((fn, cond, b)) for b in BAND_NAMES]
-            if any(r is None for r in brows):
-                continue          # dropped by the comparison (failed load)
-            degen = any(r.get("a_degen") or r.get("mis_degen")
-                        or r.get("overflow") for r in brows)
-            # zero-window cases go through the exact path: the fused
-            # program's empty-pair means are 0.0, where the reference
-            # nanmeans an empty pair list to NaN and drops the row
-            mi = mis_idx.get((subj, cond))
-            mis_zero = mi is not None and self._audio_window_count(mi) == 0
-            if n_win_e != n_win_a or degen or n_win_e == 0 or mis_zero:
-                deviants.append(i)
-                continue
-            rows.extend(dict(subject=subj, condition=cond, band=r["band"],
-                             filename=fn, w_matched=r["wasserstein_h1"],
-                             w_mismatched=r["w_mismatched"]) for r in brows)
+        with span("control_deviant_scan", self.device):
+            for i in all_idx:
+                fn, subj, cond = self.ds.index[i]
+                n_e, failed = self._rec_length(i)
+                if failed:
+                    continue
+                n_win_e = max((n_e - win) // step + 1, 0)
+                n_win_a = self._audio_window_count(i)
+                brows = [fmap.get((fn, cond, b)) for b in BAND_NAMES]
+                if any(r is None for r in brows):
+                    continue          # dropped by the comparison (failed load)
+                degen = any(r.get("a_degen") or r.get("mis_degen")
+                            or r.get("overflow") for r in brows)
+                # zero-window cases go through the exact path: the fused
+                # program's empty-pair means are 0.0, where the reference
+                # nanmeans an empty pair list to NaN and drops the row
+                mi = mis_idx.get((subj, cond))
+                mis_zero = mi is not None and self._audio_window_count(mi) == 0
+                if n_win_e != n_win_a or degen or n_win_e == 0 or mis_zero:
+                    deviants.append(i)
+                    continue
+                rows.extend(dict(subject=subj, condition=cond, band=r["band"],
+                                 filename=fn, w_matched=r["wasserstein_h1"],
+                                 w_mismatched=r["w_mismatched"]) for r in brows)
         self.redo_counts["control_deviants"] += len(deviants)
         if deviants:
             if self.verbose:
@@ -1243,9 +1246,11 @@ class StudyRunner:
                       "exact per-side pairing redo")
             tlog.LOGGER.event("control_exact_redo", n=len(deviants))
             keys = {(self.ds.index[i][1], self.ds.index[i][2]) for i in deviants}
-            mis_cache = self._mismatch_own_cache(
-                sorted({mis_idx[k] for k in keys if k in mis_idx}))
-            rows.extend(self._control_rows_exact(deviants, mis_idx, mis_cache))
+            with span("control_mismatch_cache", self.device):
+                mis_cache = self._mismatch_own_cache(
+                    sorted({mis_idx[k] for k in keys if k in mis_idx}))
+            with span("control_exact_rows", self.device):
+                rows.extend(self._control_rows_exact(deviants, mis_idx, mis_cache))
         return rows
 
     def _control_stats(self, rows) -> dict:

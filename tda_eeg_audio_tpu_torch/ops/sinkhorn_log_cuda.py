@@ -1,0 +1,150 @@
+"""Hand-written CUDA kernel for the un-tiered log-domain H1 Sinkhorn of the
+staged path and the control's exact redo, and its launcher.
+
+Kernel: `csrc/sinkhorn_log.cu` (sm_90a).  It replaces no Pallas kernel: the
+JAX package computes `sinkhorn_cost` (`tda_eeg_audio_tpu/ops/wasserstein.py:93`)
+over `build_cost_matrix` as one jitted XLA program a 512-pair chunk
+(`tda_eeg_audio_tpu/models/study.py::_wass_chunks`).  The port's plain
+version (`ops/wasserstein.py::sinkhorn_cost_pairs` on a CPU tensor) runs 480
+logsumexp half-steps, each over a materialised (chunk, S, S) tensor.  Here
+one block of THREADS threads computes one pair at its own width S = n1 + n2
+(its valid bars; pad rows and columns are zero-cost pad↔pad matches whose
+entries in real rows underflow to exactly 0), each cost entry computed from
+the bars in shared memory when used, one thread a row (a column) through an
+online logsumexp, the duals float64 in shared memory.
+
+What bounds it: 481 × S² `expf` a pair at the SMs' special-function rate;
+bytes are negligible.  The design's floor is the ~7 float64 operations an
+entry around each `expf`.
+
+`ops.wasserstein.sinkhorn_cost_pairs` is the router: a CPU tensor takes the
+plain version, a CUDA tensor comes here and launches the kernel or raises —
+there is no fallback.  `kernel_plan` is the host side's one decision; the
+library reports its layout at load and the launcher raises unless it is the
+plan's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import inspect
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .wasserstein import sinkhorn_cost
+
+__all__ = ["sinkhorn_log_cuda", "kernel_plan", "check_layout", "eps_ladder",
+           "build", "SRC", "MAX_K", "HALF_STEPS"]
+
+SRC = Path(__file__).resolve().parent.parent / "csrc" / "sinkhorn_log.cu"
+THREADS = 128             # a block a pair: a thread a row, then a column
+MAX_K = 128               # slots a side (the staged path's K_H1)
+CHUNK = 8                 # entries a step of the online logsumexp
+# the ladder of `sinkhorn_cost`'s defaults, which the kernel repeats
+_LADDER = {k: v.default for k, v in inspect.signature(sinkhorn_cost).parameters.items()
+           if k != "D"}
+EPS_HI, EPS_LO = _LADDER["eps_hi"], _LADDER["eps_lo"]
+STEPS, ITERS = _LADDER["steps"], _LADDER["iters"]
+HALF_STEPS = 2 * STEPS * ITERS    # logsumexp passes over the S × S entries a pair
+# static shared bytes a block: f and g (2 × 2·MAX_K doubles), the bars (6 ×
+# MAX_K doubles), a reduction slot a warp (doubles) and the two bar counts
+SMEM_BYTES = 8 * (4 * MAX_K + 6 * MAX_K + THREADS // 32) + 8
+LAYOUT_FIELDS = ("threads", "smem_bytes", "registers", "local_bytes", "occupancy")
+
+_libs = {}
+
+
+def eps_ladder() -> np.ndarray:
+    """The relative ε of each rung, as `sinkhorn_cost` computes it, rounded
+    to float32 (the plain version multiplies it into a float32 scale)."""
+    return np.array([EPS_HI * (EPS_LO / EPS_HI) ** (s / (STEPS - 1))
+                     for s in range(STEPS)], np.float32)
+
+
+def kernel_plan(n_pairs: int, K1: int, K2: int) -> dict:
+    """Launch plan of one call: one block of THREADS per pair, rows per
+    thread at the widest pair the pads allow.  Raises for a pad width the
+    kernel does not take (1 ≤ K ≤ MAX_K a side)."""
+    if not (1 <= K1 <= MAX_K and 1 <= K2 <= MAX_K):
+        raise ValueError(f"sinkhorn_log_cuda: pad widths ({K1}, {K2}) outside 1..{MAX_K}")
+    return dict(threads=THREADS, smem_bytes=SMEM_BYTES, grid=n_pairs,
+                max_rows_per_thread=-(-(K1 + K2) // THREADS), chunk=CHUNK)
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel (once per source content) and return the .so."""
+    return cuda_build.build_libraries([(SRC, ())], verbose)[0][0]
+
+
+def _load():
+    if "lib" not in _libs:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _libs["lib"] = cuda_build.load(SRC, {
+            "sinkhorn_log_launch": ([P, P, P, I, P, P, P, I, I, P, I, F, I, P, P], I),
+            "sinkhorn_log_layout": ([P], I)})
+    return _libs["lib"]
+
+
+def check_layout(lib) -> dict:
+    """The library's report (`LAYOUT_FIELDS`) against the plan: threads and
+    shared bytes must be the plan's, within the card's limits
+    (`cuda_build.check_layout`).  Raises on any disagreement."""
+    return cuda_build.check_layout(lib, "sinkhorn_log_layout", LAYOUT_FIELDS,
+                                   kernel_plan(1, 1, 1), ("threads", "smem_bytes"), SRC)
+
+
+@functools.lru_cache(maxsize=None)
+def layout_report() -> dict:
+    """`check_layout` of the library, once per process."""
+    return check_layout(_load())
+
+
+def _check(args):
+    b1, d1, m1, b2, d2, m2 = args
+    dev = b1.device
+    if dev.type != "cuda" or any(x.device != dev for x in args):
+        raise ValueError(f"sinkhorn_log_cuda: inputs must be on one CUDA "
+                         f"device, not {[str(x.device) for x in args]}")
+    if any(x.dtype != torch.float32 for x in (b1, d1, b2, d2)) or \
+            m1.dtype != torch.bool or m2.dtype != torch.bool:
+        raise ValueError("sinkhorn_log_cuda: bars float32, masks bool")
+    if any(x.dim() != 2 for x in args) or len({x.shape for x in args[:3]}) != 1 \
+            or len({x.shape for x in args[3:]}) != 1 or b1.shape[0] != b2.shape[0]:
+        raise ValueError("sinkhorn_log_cuda: (N, K1) and (N, K2) per side")
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("sinkhorn_log_cuda: inputs must be contiguous")
+
+
+def sinkhorn_log_cuda(b1, d1, m1, b2, d2, m2) -> torch.Tensor:
+    """`sinkhorn_cost(build_cost_matrix(...))` of N diagram pairs: b/d (N, K)
+    float32 and m (N, K) bool per side, bars anywhere in the row, 1 ≤ K ≤
+    MAX_K, all contiguous on one CUDA device → (N,) float32.  One launch, a
+    block a pair, no host synchronisation.  Raises for anything else."""
+    args = (b1, d1, m1, b2, d2, m2)
+    _check(args)
+    N, K1 = b1.shape
+    K2 = b2.shape[1]
+    kernel_plan(N, K1, K2)
+    dev = b1.device
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    ladder = eps_ladder()
+    with torch.cuda.device(dev):
+        layout_report()
+        rc = _load().sinkhorn_log_launch(
+            b1.data_ptr(), d1.data_ptr(), m1.data_ptr(), K1,
+            b2.data_ptr(), d2.data_ptr(), m2.data_ptr(), K2, N,
+            ladder.ctypes.data_as(ctypes.c_void_p), STEPS, EPS_LO, ITERS,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sinkhorn_log_launch failed: cudaError {rc}")
+    sinkhorn_log_cuda.launches += 1
+    return out
+
+
+sinkhorn_log_cuda.launches = 0

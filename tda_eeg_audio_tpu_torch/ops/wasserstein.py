@@ -1,17 +1,27 @@
 """Batched diagram Wasserstein distances (counterpart of the reference's
 `ops/wasserstein.py`): persim's cost matrix over padded diagrams, the
 ε-annealed Sinkhorn for H1 (log-domain, and the stabilized linear-domain
-variant the tiered path uses), and the exact monotone-matching DP for H0."""
+variant the tiered path uses), and the exact monotone-matching DP for H0.
+
+Two routers: `sinkhorn_cost_pairs` (the log-domain Sinkhorn of padded
+diagram pairs) and `wasserstein_h0_exact`.  A CPU tensor takes the plain
+version; a CUDA tensor launches the hand-written kernel
+(`sinkhorn_log_cuda`, `wasserstein_h0_cuda`) or raises — no fallback."""
 
 from __future__ import annotations
 
 import torch
+
+from .wasserstein_h0_cuda import wasserstein_h0_cuda
 
 W_TIERS = (16, 40, 80)    # bar-count buckets of the tiered Sinkhorn
 # the ε ladder of `sinkhorn_cost_stab` (and of the CUDA kernel that repeats
 # it): ε from 3e-2 to 1e-4 of the cost scale in 6 rungs, 40 iterations a
 # rung in blocks of 8 between absorptions
 EPS_HI, EPS_LO, STEPS, ITERS, ABSORB = 3e-2, 1e-4, 6, 40, 8
+# pairs a piece of the plain un-tiered Sinkhorn: its cost matrix is
+# SINKHORN_CHUNK × S² floats (134 MB at the staged pad width S = 256)
+SINKHORN_CHUNK = 512
 
 
 def build_cost_matrix(b1, d1, m1, b2, d2, m2, big: float = 1e9):
@@ -83,6 +93,23 @@ def sinkhorn_cost(D, eps_hi: float = 3e-2, eps_lo: float = 1e-4,
     return (P * torch.where(real, D, 0.0)).sum(dim=(1, 2))
 
 
+def sinkhorn_cost_pairs(b1, d1, m1, b2, d2, m2):
+    """`sinkhorn_cost(build_cost_matrix(...))` of N padded diagram pairs,
+    (N, K1) / (N, K2) per side → (N,).  A CPU tensor takes the plain version
+    in SINKHORN_CHUNK-pair pieces; a CUDA tensor launches
+    `sinkhorn_log_cuda` (one launch, each pair at its own width, no host
+    synchronisation) or raises."""
+    if b1.device.type == "cpu":
+        chunk = SINKHORN_CHUNK
+        outs = [sinkhorn_cost(build_cost_matrix(
+            *(x[c:c + chunk] for x in (b1, d1, m1, b2, d2, m2))))
+            for c in range(0, b1.shape[0], chunk)]
+        return torch.cat(outs) if outs else b1.new_zeros(0)
+    from .sinkhorn_log_cuda import sinkhorn_log_cuda   # it imports this module
+
+    return sinkhorn_log_cuda(*(x.contiguous() for x in (b1, d1, m1, b2, d2, m2)))
+
+
 def sinkhorn_cost_stab(D, eps_hi: float = EPS_HI, eps_lo: float = EPS_LO,
                        steps: int = STEPS, iters: int = ITERS, absorb: int = ABSORB):
     """ε-annealed entropic OT cost <P, D> on the persim cost matrix.
@@ -123,6 +150,16 @@ BIGF = 3e38
 
 
 def wasserstein_h0_exact(d1, m1, d2, m2):
+    """Exact persim Wasserstein between H0 diagrams: deaths d (B, K) and
+    masks m per side → (B,).  A CPU tensor takes the plain loop
+    (`wasserstein_h0_exact_plain`); a CUDA tensor launches
+    `wasserstein_h0_cuda` (one launch) or raises."""
+    if d1.device.type == "cpu":
+        return wasserstein_h0_exact_plain(d1, m1, d2, m2)
+    return wasserstein_h0_cuda(d1, m1, d2, m2)
+
+
+def wasserstein_h0_exact_plain(d1, m1, d2, m2):
     """Exact persim Wasserstein between H0 diagrams (all births 0).
 
     On ascending deaths the pair cost |a_i − b_j| is a Monge array, so the
