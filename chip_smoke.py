@@ -60,8 +60,9 @@ Phases, each fatal on failure:
      with the union bank on, per-stage seconds and kernel launches, the
      counts of what the exact redo did, and checks of shapes, finiteness,
      bank service and statistics; the control stage's parts timed by its
-     spans, and the pairs its exact redo hands the un-tiered Sinkhorn kept
-     for phase 13;
+     spans, and the pairs its exact redo hands the un-tiered Sinkhorn and
+     the exact-H0 pairs of its first four comparison batches kept for
+     phase 13;
   7. one batch through `comparison_from_bank` and through
      `comparison_program` on the card (integers and flags equal, floats
      within phase 5's tolerances);
@@ -120,11 +121,13 @@ Phases, each fatal on failure:
      float32 version and 1e-4 of its float64 run, the same NaN / inf, one
      launch a call, no host synchronisation (set_sync_debug_mode("error")),
      timed beside the plain version, peak memory a call, the bound at each
-     pair's own width and at the pad width; the exact H0 DP kernel through
-     `wasserstein_h0_exact` against the plain loop on the card on phase 4's
-     1,200 pairs (46 / 123) and on staged pads (64 / 128) with all-pad and
-     single-bar rows: within rtol 1e-6, one launch a call, bit for bit
-     against the CPU's plain loop (a reading), timed, its bound by bytes;
+     pair's own width and at the pad width, the pairs by the lanes a line
+     takes and by cost route (table or bars); the exact H0 DP kernel
+     through `wasserstein_h0_exact` against the plain loop on the card on
+     phase 4's 1,200 pairs (46 / 123), on staged pads (64 / 128) with
+     all-pad and single-bar rows and on phase 6's 4,800 (a batch of 64
+     recordings' worth): within rtol 1e-6, one launch a call, bit for bit
+     against the CPU's plain loop (a reading), timed, its bound;
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package, nor scikit-learn or
 matplotlib.
@@ -188,6 +191,9 @@ SINKHORN_F64_RTOL = 1e-6
 SINKHORN_LOG_RTOL = 2e-4
 SINKHORN_LOG_F64_RTOL = 1e-4
 H0_RTOL = 1e-6
+# phase 13's sets for the exact H0 kernel: phase 4's batch of 16 recordings,
+# staged pads, and four of phase 6's batches (the 4,800 pairs of a batch of 64)
+H0_SETS = ("main", "staged", "batch64")
 # the stage of the main path that runs the kernel at one shape only
 STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
 # phase 10's sosfiltfilt cases: 2 ragged recordings, the main path's batch of
@@ -1078,8 +1084,14 @@ def sinkhorn_log_check(sets, clock_hz):
         b1, d1, m1, b2, d2, m2 = pairs
         nan_bars = ((m1 & ~(torch.isfinite(b1) & torch.isfinite(d1))).any(1)
                     | (m2 & ~(torch.isfinite(b2) & torch.isfinite(d2))).any(1))
+        n1 = torch.clamp(m1.sum(1), min=1).cpu()
+        n2 = torch.clamp(m2.sum(1), min=1).cpu()
+        lanes = [SL.lanes(int(a + b)) for a, b in zip(n1, n2)]
         res[name] = dict(
             pairs=int(g.numel()), launches_per_call=per_call,
+            pairs_by_lanes={L: lanes.count(L) for L in (8, 4, 2, 1)},
+            table_pairs=sum(int(a) * SL.table_pitch(int(b), L) <= SL.TABLE_DOUBLES
+                            for a, b, L in zip(n1, n2, lanes)),
             nonfinite_bar_pairs=int(nan_bars.sum()),
             same_nonfinite=bool(torch.equal(torch.isfinite(g), fin)),
             within=bool((err <= SINKHORN_LOG_RTOL * r[fin].abs()).all()),
@@ -1128,8 +1140,9 @@ def h0_check(sets):
     """Phase 13, kernel B: the exact H0 DP kernel through its router
     (`wasserstein_h0_exact`) against the plain loop on the card within
     H0_RTOL, one launch a call; bit for bit against the plain loop on the
-    CPU (a reading); timed (CUDA events), the plain loop timed, the bound by
-    bytes (deaths and masks read once, one float written a pair).  The
+    CPU (a reading); timed (CUDA events), the plain loop timed, the bound:
+    the larger of the bytes (deaths and masks read once, one float written a
+    pair) and the operations (the DP's cells, the sorts' compares).  The
     launches made here are not counted."""
     import torch
 
@@ -1149,9 +1162,10 @@ def h0_check(sets):
         err = (g - r).abs()
         N, K1, K2 = args[0].shape[0], args[0].shape[1], args[2].shape[1]
         bytes_ = N * (K1 + K2) * 5 + N * 4
-        # the DP's cells at ~8 float32 operations each and the sorts'
-        # compares, at the FP32 rate (a reading beside the bytes)
-        ops = N * (8 * K1 * (K2 + 1) + K1 * K1 + K2 * K2)
+        # the DP's cells at ~8 float32 operations each and a comparison
+        # sort's K ceil(log2 K) compares a side, at the FP32 rate
+        ops = N * (8 * K1 * (K2 + 1) + K1 * (K1 - 1).bit_length()
+                   + K2 * (K2 - 1).bit_length())
         res[name] = dict(
             pairs=N, K=(K1, K2), launches_per_call=per_call,
             within=bool((err <= H0_RTOL * r.abs()).all()),
@@ -2221,10 +2235,11 @@ def main() -> int:
     store.audio[0, store.ns_a[0] - cut:store.ns_a[0]] = 0.0
     store.ns_a[0] -= cut
     # the control stage's parts timed by its spans; the pairs its exact
-    # redo hands the un-tiered Sinkhorn kept for phase 13
-    (report, problems, x_fir, _), (wass_calls,) = capture_calls(
+    # redo hands the un-tiered Sinkhorn and the comparison's exact-H0 pairs
+    # kept for phase 13
+    (report, problems, x_fir, _), (wass_calls, h0_batches) = capture_calls(
         lambda: runner_phase(store, cfg, control_spans=True),
-        (study_mod, "sinkhorn_cost_pairs"))
+        (study_mod, "sinkhorn_cost_pairs"), (P, "wasserstein_h0_exact"))
     runner_launches = report["launches_total"]
     print(f"runner ({report['recordings']} recordings, store {store_gb:.2f} GB "
           f"generated on the card in {ingest_ms / 1e3:.1f} s): "
@@ -2241,6 +2256,9 @@ def main() -> int:
         print(f"FAIL: runner: {problems}", file=sys.stderr)
         return 1
     ctl_pairs = tuple(torch.cat([c[k] for c in wass_calls]) for k in range(6))
+    # four comparison batches' exact-H0 pairs: the 4,800 of one batch of 64
+    # recordings, for phase 13
+    h0_batch64 = tuple(torch.cat([c[k] for c in h0_batches[:4]]) for k in range(4))
 
     # ── phase 7: bank path against in-call path on the card ──
     bad, ratio = bank_vs_in_call(store, cfg)
@@ -2365,7 +2383,9 @@ def main() -> int:
         r = sl[name]
         print(f"sinkhorn_log vs plain {name} ({r['pairs']} pairs, S mean "
               f"{r['S_mean']:.1f} max {r['S_max']} at the pairs' own width, pad "
-              f"{r['S_pad']}): {r['launches_per_call']} launch(es) a call, "
+              f"{r['S_pad']}; pairs by lanes a line {json.dumps(r['pairs_by_lanes'])}, "
+              f"costs from the table {r['table_pairs']}): {r['launches_per_call']} "
+              f"launch(es) a call, "
               f"max_rel_err {r['max_rel_err']:.3e} (rtol {SINKHORN_LOG_RTOL}, margin "
               f"{SINKHORN_LOG_RTOL - r['max_rel_err']:.3e}, within {r['within']}; the "
               f"plain version's own distance from float64 {r['plain_vs_float64']:.3e}), "
@@ -2381,8 +2401,9 @@ def main() -> int:
     print(f"sinkhorn_log under set_sync_debug_mode('error'): no host "
           f"synchronisation ({sl['no_host_sync']}); layout as the library reports "
           f"it: {json.dumps(sl['layout'])}", flush=True)
-    h0 = h0_check({"main": h0_main, "staged": h0_staged_inputs(dev)})
-    for name in ("main", "staged"):
+    h0 = h0_check({"main": h0_main, "staged": h0_staged_inputs(dev),
+                   "batch64": h0_batch64})
+    for name in H0_SETS:
         r = h0[name]
         print(f"wasserstein_h0 vs plain {name} ({r['pairs']} pairs at {r['K']}): "
               f"{r['launches_per_call']} launch(es) a call, max_abs_err "
@@ -2395,9 +2416,10 @@ def main() -> int:
     bad = [k for k in ("control", "seeded") if not (
         sl[k]["within"] and sl[k]["within_float64"] and sl[k]["same_nonfinite"]
         and sl[k]["launches_per_call"] == 1)]
-    bad += [k for k in ("main", "staged") if not (
+    bad += [k for k in H0_SETS if not (
         h0[k]["within"] and h0[k]["finite"] and h0[k]["launches_per_call"] == 1)]
-    if bad or h0["main"]["pairs"] != B_REC * 5 * K_CMP:
+    if bad or h0["main"]["pairs"] != B_REC * 5 * K_CMP \
+            or h0["batch64"]["pairs"] != 4 * B_REC * 5 * K_CMP:
         print(f"FAIL: phase 13 kernels vs plain: {bad}", file=sys.stderr)
         return 1
 
@@ -2566,7 +2588,7 @@ def main() -> int:
             cli={k: r["h0_launches"] for k, r in cli_report.items()},
             runner_iir_scan=iir_report["h0_launches"],
             runner_knobs={k: r["h0_launches"] for k, r in (knob_reports or {}).items()}),
-        max_abs_err=max(h0[k]["max_abs_err"] for k in ("main", "staged")),
+        max_abs_err=max(h0[k]["max_abs_err"] for k in H0_SETS),
         ms=h0["main"]["ms"], plain_ms=h0["main"]["plain_ms"],
         bound_ms=max(h0["main"]["t_bytes"], h0["main"]["t_ops"]),
         bound_by="bytes" if h0["main"]["t_bytes"] >= h0["main"]["t_ops"]
@@ -2575,7 +2597,7 @@ def main() -> int:
                         plain_ms=h0[k]["plain_ms"],
                         bound_ms=max(h0[k]["t_bytes"], h0[k]["t_ops"]),
                         bit_for_bit_vs_cpu=h0[k]["bit_for_bit_vs_cpu"])
-                for k in ("main", "staged")},
+                for k in H0_SETS},
         layout=h0["layout"], held_against_plain=True)]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 // Exact H0 Wasserstein of the comparison stage for sm_90a: persim's distance
-// between two H0 diagrams (every birth 0), one warp per pair, the sort and the
-// alignment DP in one launch.
+// between two H0 diagrams (every birth 0), one warp per pair, the sorts, the
+// column sums and the alignment DP in one launch.
 //
 // Replaces no Pallas kernel.  The JAX package computes the same function as
 // XLA code: `tda_eeg_audio_tpu/ops/wasserstein.py::wasserstein_h0_exact`
@@ -10,16 +10,28 @@
 // over the K1 rows, ten small ops a row: ~460 launches a comparison batch.
 //
 // Per pair (one warp):
-//   1. a = sort(where(m1, d1, 0)), b = sort(where(m2, d2, 0)), ascending, by
-//      rank: every lane ranks its slots against all slots of the side (the
-//      number of smaller keys, plus the equal keys at lower slots) and writes
-//      each value at its rank in shared memory.  The key is the value's
-//      bits made monotone, -0.0 taken as +0.0 and every NaN as the one +NaN,
-//      last (torch's and JAX's order of values; a sort of values alone, so
-//      the order of equal keys cannot change the result);
-//   2. bcol = [0, b], cumw = cumsum(bcol / 2): lane 0 sums in column order
-//      in float64 and rounds each prefix to float32, as torch's CPU cumsum
-//      does, so the kernel equals the plain version on the CPU bit for bit;
+//   1. a = sort(where(m1, d1, 0)), b = sort(where(m2, d2, 0)), ascending, in
+//      registers: lane l holds slots 4 l + [0, 4) of a side as sort keys (the
+//      value's bits made monotone, -0.0 taken as +0.0 and every NaN as the
+//      one +NaN, last: torch's and JAX's order of values; slots past K hold
+//      the largest key), a bitonic network over the next power of two >= K
+//      slots sorts them (distances 1 and 2 within a lane's registers, the
+//      others by __shfl_xor_sync), and each sorted key goes back to its value
+//      in shared memory.  A sort of values alone: the order of equal keys
+//      cannot change the result, and the sign of a zero never reaches it (no
+//      sum or min of the DP meets -0.0 + -0.0);
+//   2. bcol = [0, b], cumw = cumsum(bcol / 2), rounded to float32 a prefix:
+//      torch's CPU cumsum accumulates the float32 halves in float64 and
+//      rounds each prefix once, and the kernel must give its bits.  Lane l
+//      sums its columns j = 5 l + [0, 5) in float64, a warp scan (shuffles)
+//      adds the lanes before it.  The halves are float32, so every partial
+//      sum, in any order, is a multiple of the smallest half's ulp and below
+//      K2 times the largest half's binade: when their exponents span at most
+//      29 - ceil(log2 K2) (22 at K2 = 128), each partial sum is exact in
+//      float64 and the scan's prefixes are the sequential ones bit for bit
+//      (infinities and NaN give the same result in any order).  A pair
+//      whose halves span more (a 1e-9 death beside deaths of ~1) takes lane
+//      0's sequential sum in column order, the plain loop's;
 //   3. K1 rows: lane l holds columns j = 5 l + [0, 5) of the row in registers
 //      (K2 + 1 <= 160);
 //        c_j = min(row_{j-1} + |a_i - bcol_j|, row_j + a_i / 2),  c_0 = row_0 + a_i / 2
@@ -33,12 +45,13 @@
 //
 // What bounds it: the bytes, each death and mask read once and one float
 // written a pair — 4 MB, ~1.2 us at 3.35 TB/s, for a comparison batch of 64
-// recordings (4,800 pairs of 46 and 123 slots).  The work is ~K1 (K1 + K2)
-// + K2^2 compares for the sorts and K1 (K2 + 1) cells of ~8 operations; at
-// one warp a pair, 4,800 pairs are ~25 us of issue on 132 SMs.  So a call is
-// bound by its launch, and the design makes it one launch with nothing in
-// front of it (no torch.sort, no cumsum, no copy: the kernel reads rows
-// through their strides).
+// recordings (4,800 pairs of 46 and 123 slots) — and the operations, K1 (K2
+// + 1) cells of ~8 float32 operations and the sorts' K log2 K compares,
+// ~3.3 us at 67 TFLOP/s.  A warp's instructions a pair are the two sorts' 21 + 28
+// network steps (4 compares a lane each), the scan and K1 rows of ~40
+// instructions; a call is one launch with nothing in front of it (no
+// torch.sort, no cumsum, no copy: the kernel reads rows through their
+// strides).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libwasserstein_h0.so wasserstein_h0.cu
@@ -53,7 +66,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;          // pairs a block
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_K = 128;        // slots a side
+constexpr int PER = MAX_K / 32;   // sort keys a lane
 constexpr int COLS = 5;           // row columns a lane: 32 * 5 >= MAX_K + 1
+constexpr uint32_t PAD_KEY = 0xffffffffu;  // above every value's key, NaN's included
 
 struct Args {
   const float *d1, *d2;
@@ -73,34 +88,63 @@ __device__ __forceinline__ uint32_t sort_key(float x) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// one side of a pair into `sorted` (K values, ascending): where(m, d, 0)
-__device__ __forceinline__ void rank_sort(const float* d, const uint8_t* m, int K, int lane,
-                                          uint32_t* keys, float* sorted) {
-  constexpr int PER = MAX_K / 32;
-  float v[PER];
-  uint32_t k[PER];
+// the value of a key (sort_key's inverse on the values it yields)
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// keys x < y in ascending (up) or descending order
+__device__ __forceinline__ void order(uint32_t& x, uint32_t& y, bool up) {
+  const uint32_t lo = min(x, y), hi = max(x, y);
+  x = up ? lo : hi;
+  y = up ? hi : lo;
+}
+
+// one side of a pair into `sorted` (K values, ascending): where(m, d, 0).
+// Slot s = 4 lane + q is key v[q]; a bitonic network over n = the next power
+// of two >= K slots
+__device__ __forceinline__ void sort_side(const float* d, const uint8_t* m, int K, int lane,
+                                          float* sorted) {
+  uint32_t v[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
-    const int s = lane + 32 * q;
-    v[q] = s < K ? (m[s] ? d[s] : 0.0f) : 0.0f;
-    k[q] = sort_key(v[q]);
-    if (s < K) keys[s] = k[q];
+    const int s = PER * lane + q;
+    v[q] = s < K ? sort_key(m[s] ? d[s] : 0.0f) : PAD_KEY;
   }
-  __syncwarp();
+  int n = 1;
+  while (n < K) n <<= 1;
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= PER) {  // the partner is lane ^ (j / PER), same register
 #pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int s = lane + 32 * q;
-    int rank = 0;
-    for (int j = 0; j < K; ++j) {
-      const uint32_t kj = keys[j];
-      rank += (kj < k[q]) | ((kj == k[q]) & (j < s));
+        for (int q = 0; q < PER; ++q) {
+          const int s = PER * lane + q;
+          const uint32_t o = __shfl_xor_sync(FULL, v[q], j / PER);
+          const bool keep_min = ((s & k) == 0) == ((s & j) == 0);
+          v[q] = keep_min ? min(v[q], o) : max(v[q], o);
+        }
+      } else if (j == 2) {  // registers q, q + 2
+        const bool up = ((PER * lane) & k) == 0;
+        order(v[0], v[2], up);
+        order(v[1], v[3], up);
+      } else {  // registers q, q + 1
+        order(v[0], v[1], ((PER * lane) & k) == 0);
+        order(v[2], v[3], ((PER * lane + 2) & k) == 0);
+      }
     }
-    if (s < K) sorted[rank] = v[q];
   }
+#pragma unroll
+  for (int q = 0; q < PER; ++q)
+    if (PER * lane + q < K) sorted[PER * lane + q] = key_value(v[q]);
+}
+
+// the biased exponent a half's ulp and binade are counted in: max(E, 1)
+__device__ __forceinline__ int half_exp(float h) {
+  const int e = (__float_as_uint(h) >> 23) & 0xff;
+  return e > 1 ? e : 1;
 }
 
 __global__ void __launch_bounds__(THREADS) wasserstein_h0_kernel(Args a) {
-  __shared__ uint32_t s_keys[WARPS][MAX_K];
   __shared__ float s_a[WARPS][MAX_K];
   __shared__ float s_b[WARPS][MAX_K];
   __shared__ float s_cw[WARPS][MAX_K + 1];
@@ -110,32 +154,70 @@ __global__ void __launch_bounds__(THREADS) wasserstein_h0_kernel(Args a) {
   const int K1 = a.K1, K2 = a.K2;
 
   // 1. both sides sorted into shared memory
-  rank_sort(a.d1 + p * a.s_d1, a.m1 + p * a.s_m1, K1, lane, s_keys[w], s_a[w]);
-  __syncwarp();
-  rank_sort(a.d2 + p * a.s_d2, a.m2 + p * a.s_m2, K2, lane, s_keys[w], s_b[w]);
-  __syncwarp();
-
-  // 2. cumw in column order, float64 sums rounded once each (torch's CPU cumsum)
-  if (lane == 0) {
-    double acc = 0.0;
-    s_cw[w][0] = 0.0f;
-    for (int j = 1; j <= K2; ++j) {
-      acc += (double)(s_b[w][j - 1] / 2.0f);
-      s_cw[w][j] = (float)acc;
-    }
-  }
+  sort_side(a.d1 + p * a.s_d1, a.m1 + p * a.s_m1, K1, lane, s_a[w]);
+  sort_side(a.d2 + p * a.s_d2, a.m2 + p * a.s_m2, K2, lane, s_b[w]);
   __syncwarp();
 
-  // 3. the rows; columns past K2 hold zeros and never reach column K2's prefix
-  float row[COLS], cw[COLS], bc[COLS];
+  // 2. this lane's columns: bcol and cumw (column sums, float64, one
+  // rounding a prefix); columns past K2 hold zeros and never reach column
+  // K2's prefix
+  float bc[COLS], cw[COLS];
+  int e_hi = 0, e_lo = 255;
 #pragma unroll
   for (int q = 0; q < COLS; ++q) {
     const int j = COLS * lane + q;
-    const bool in = j <= K2;
-    cw[q] = in ? s_cw[w][j] : 0.0f;
-    bc[q] = in && j > 0 ? s_b[w][j - 1] : 0.0f;
-    row[q] = cw[q];
+    bc[q] = j > 0 && j <= K2 ? s_b[w][j - 1] : 0.0f;
+    const float h = bc[q] / 2.0f;
+    if (h != 0.0f && isfinite(h)) {
+      e_hi = max(e_hi, half_exp(h));
+      e_lo = min(e_lo, half_exp(h));
+    }
   }
+  e_hi = __reduce_max_sync(FULL, e_hi);
+  e_lo = __reduce_min_sync(FULL, e_lo);
+  const int log2_terms = K2 > 1 ? 32 - __clz(K2 - 1) : 0;
+  if (e_hi - e_lo <= 29 - log2_terms) {  // every partial sum exact: a warp scan
+    double part[COLS];
+    double acc = 0.0;
+#pragma unroll
+    for (int q = 0; q < COLS; ++q) {
+      acc += (double)(bc[q] / 2.0f);
+      part[q] = acc;
+    }
+    double before = acc;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(FULL, before, o);
+      if (lane >= o) before += y;
+    }
+    before = __shfl_up_sync(FULL, before, 1);
+    if (lane == 0) before = 0.0;
+#pragma unroll
+    for (int q = 0; q < COLS; ++q) cw[q] = (float)(before + part[q]);
+  } else {  // lane 0 in column order
+    if (lane == 0) {
+      double acc = 0.0;
+      s_cw[w][0] = 0.0f;
+      for (int j = 1; j <= K2; ++j) {
+        acc += (double)(s_b[w][j - 1] / 2.0f);
+        s_cw[w][j] = (float)acc;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < COLS; ++q) {
+      const int j = COLS * lane + q;
+      cw[q] = j <= K2 ? s_cw[w][j] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < COLS; ++q)
+    if (COLS * lane + q > K2) cw[q] = 0.0f;
+
+  // 3. the rows
+  float row[COLS];
+#pragma unroll
+  for (int q = 0; q < COLS; ++q) row[q] = cw[q];
   for (int i = 0; i < K1; ++i) {
     const float ai = s_a[w][i];
     const float half = ai / 2.0f;

@@ -9,13 +9,14 @@ version (`ops/wasserstein.py::sinkhorn_cost_pairs` on a CPU tensor) runs 480
 logsumexp half-steps, each over a materialised (chunk, S, S) tensor.  Here
 one block of THREADS threads computes one pair at its own width S = n1 + n2
 (its valid bars; pad rows and columns are zero-cost pad↔pad matches whose
-entries in real rows underflow to exactly 0), each cost entry computed from
-the bars in shared memory when used, one thread a row (a column) through an
-online logsumexp, the duals float64 in shared memory.
+entries in real rows underflow to exactly 0).  Each row (column) of the cost
+matrix is split over `lanes(S)` lanes, each with its own online logsumexp,
+merged by shuffles; the bar × bar block of the cost matrix is read from a
+table in dynamic shared memory when it fits (TABLE_DOUBLES), else computed
+from the bars; the duals are float64 in units of the rung's ε.
 
 What bounds it: 481 × S² `expf` a pair at the SMs' special-function rate;
-bytes are negligible.  The design's floor is the ~7 float64 operations an
-entry around each `expf`.
+bytes are negligible.
 
 `ops.wasserstein.sinkhorn_cost_pairs` is the router: a CPU tensor takes the
 plain version, a CUDA tensor comes here and launches the kernel or raises —
@@ -38,21 +39,30 @@ from . import cuda_build
 from .wasserstein import sinkhorn_cost
 
 __all__ = ["sinkhorn_log_cuda", "kernel_plan", "check_layout", "eps_ladder",
-           "build", "SRC", "MAX_K", "HALF_STEPS"]
+           "build", "SRC", "MAX_K", "HALF_STEPS", "lanes", "table_pitch"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "sinkhorn_log.cu"
-THREADS = 128             # a block a pair: a thread a row, then a column
+THREADS = 256             # a block a pair: L lanes a row, then a column
 MAX_K = 128               # slots a side (the staged path's K_H1)
-CHUNK = 8                 # entries a step of the online logsumexp
+CHUNK = 8                 # a lane's entries a step of the online logsumexp
+# lanes a line (row or column) at a pair's own width S: (largest S, L), the
+# largest power of two with S × L ≤ THREADS
+LANE_BOUNDS = ((32, 8), (64, 4), (128, 2), (2 * MAX_K, 1))
+# doubles of the bar × bar cost table in dynamic shared memory; a pair whose
+# n1 × P (P: the table's row stride) exceeds it computes the costs from the
+# bars (csrc's TABLE)
+TABLE_DOUBLES = 5632
 # the ladder of `sinkhorn_cost`'s defaults, which the kernel repeats
 _LADDER = {k: v.default for k, v in inspect.signature(sinkhorn_cost).parameters.items()
            if k != "D"}
 EPS_HI, EPS_LO = _LADDER["eps_hi"], _LADDER["eps_lo"]
 STEPS, ITERS = _LADDER["steps"], _LADDER["iters"]
 HALF_STEPS = 2 * STEPS * ITERS    # logsumexp passes over the S × S entries a pair
-# static shared bytes a block: f and g (2 × 2·MAX_K doubles), the bars (6 ×
-# MAX_K doubles), a reduction slot a warp (doubles) and the two bar counts
-SMEM_BYTES = 8 * (4 * MAX_K + 6 * MAX_K + THREADS // 32) + 8
+# shared bytes a block: f and g (2 × 2·MAX_K doubles), the bars (6 × MAX_K
+# doubles), 3 constant cells, a reduction slot a warp (doubles) and the two
+# bar counts, static, rounded up to 16 bytes where the table, dynamic, starts
+SMEM_BYTES = -(-(8 * (4 * MAX_K + 6 * MAX_K + 3 + THREADS // 32) + 8) // 16) * 16 \
+    + 8 * TABLE_DOUBLES
 LAYOUT_FIELDS = ("threads", "smem_bytes", "registers", "local_bytes", "occupancy")
 
 _libs = {}
@@ -65,14 +75,38 @@ def eps_ladder() -> np.ndarray:
                      for s in range(STEPS)], np.float32)
 
 
+def lanes(S: int) -> int:
+    """L, the lanes a row (column) of a pair of own width S is split over."""
+    for top, L in LANE_BOUNDS:
+        if S <= top:
+            return L
+    raise ValueError(f"sinkhorn_log_cuda: width {S} above {2 * MAX_K}")
+
+
+def table_pitch(n2: int, L: int) -> int:
+    """The table's row stride at L lanes: the least P ≥ n2 whose residue mod
+    16 keeps the row and the column pass free of bank conflicts (odd at L =
+    1, 2 mod 4 at L = 2, 4 mod 8 at L = 4 and 8)."""
+    mask, want = {1: (1, 1), 2: (3, 2)}.get(L, (7, 4))
+    p = n2
+    while p & mask != want:
+        p += 1
+    return p
+
+
 def kernel_plan(n_pairs: int, K1: int, K2: int) -> dict:
-    """Launch plan of one call: one block of THREADS per pair, rows per
-    thread at the widest pair the pads allow.  Raises for a pad width the
-    kernel does not take (1 ≤ K ≤ MAX_K a side)."""
+    """Launch plan of one call: one block of THREADS per pair, the lanes a
+    line by each pair's own width S (`lane_bounds`: S ≤ 32 → 8, ≤ 64 → 4,
+    ≤ 128 → 2, else 1; chosen in the kernel), the entries a lane walks at
+    the widest pair the pads allow.  Raises for a pad width the kernel does
+    not take (1 ≤ K ≤ MAX_K a side)."""
     if not (1 <= K1 <= MAX_K and 1 <= K2 <= MAX_K):
         raise ValueError(f"sinkhorn_log_cuda: pad widths ({K1}, {K2}) outside 1..{MAX_K}")
+    S = K1 + K2
     return dict(threads=THREADS, smem_bytes=SMEM_BYTES, grid=n_pairs,
-                max_rows_per_thread=-(-(K1 + K2) // THREADS), chunk=CHUNK)
+                max_rows_per_thread=-(-S // THREADS), chunk=CHUNK,
+                lane_bounds=LANE_BOUNDS, table_doubles=TABLE_DOUBLES,
+                max_entries_per_lane=-(-S // lanes(S)))
 
 
 def build(verbose: bool = False) -> Path:

@@ -6,16 +6,19 @@ the JAX package computes `wasserstein_h0_exact`
 (`tda_eeg_audio_tpu/ops/wasserstein.py:190`) as two sorts and one
 `lax.scan` over the rows of the alignment DP.  The port's plain version
 (`ops/wasserstein.py::wasserstein_h0_exact_plain`) is a Python loop over
-the K1 rows, ten small ops a row.  Here one warp computes one pair: both
-sides sorted by rank in shared memory, `cumw` summed in column order in
-float64 and rounded once a prefix (torch's CPU cumsum, so the kernel equals
-the plain version on the CPU bit for bit), the K1 rows in registers, five
-columns a lane, the prefix min a warp scan.
+the K1 rows, ten small ops a row.  Here one warp computes one pair: each
+side sorted in registers by a bitonic network of shuffles (SORT_KEYS keys a
+lane), `cumw` summed in float64 and rounded once a prefix by a warp scan
+where every partial sum is exact (`scan_is_exact`), else by one lane in
+column order — torch's CPU cumsum either way, so the kernel equals the plain
+version on the CPU bit for bit — the K1 rows in registers, five columns a
+lane, the prefix min a warp scan.
 
-What bounds it: bytes (each death and mask read once, one float written a
-pair: ~1.2 µs at a comparison batch of 64 recordings), far below a launch,
-so a call is one launch with nothing in front of it; rows are read through
-their strides.
+What bounds it: the operations (the DP's cells and the sorts' compares,
+~3.3 µs at 67 TFLOP/s) and the bytes (each death and mask read once, one
+float written a pair: ~1.2 µs) at a comparison batch of 64 recordings, both
+near a launch, so a call is one launch with nothing in front of it; rows are
+read through their strides.
 
 `ops.wasserstein.wasserstein_h0_exact` is the router: a CPU tensor takes
 the plain loop, a CUDA tensor comes here and launches the kernel or raises —
@@ -35,32 +38,58 @@ import torch
 from . import cuda_build
 
 __all__ = ["wasserstein_h0_cuda", "kernel_plan", "check_layout", "build", "SRC",
-           "MAX_K"]
+           "MAX_K", "scan_is_exact"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "wasserstein_h0.cu"
 WARPS = 4                 # pairs a block, one warp each
 THREADS = 32 * WARPS
 MAX_K = 128               # slots a side
 COLS = 5                  # row columns a lane: 32 × 5 ≥ MAX_K + 1
-# static shared bytes a block: per warp the sort keys, both sorted sides
-# (MAX_K uint32 / float32 each) and cumw (MAX_K + 1 floats)
-SMEM_BYTES = WARPS * 4 * (3 * MAX_K + MAX_K + 1)
+SORT_KEYS = MAX_K // 32   # sort keys a lane
+# static shared bytes a block: per warp both sorted sides (MAX_K float32
+# each) and cumw (MAX_K + 1 floats)
+SMEM_BYTES = WARPS * 4 * (2 * MAX_K + MAX_K + 1)
 LAYOUT_FIELDS = ("threads", "pairs_per_block", "smem_bytes", "registers",
                  "local_bytes", "occupancy")
 
 _libs = {}
 
 
+def _network_steps(K: int) -> int:
+    """Steps of the bitonic network over the next power of two ≥ K slots."""
+    n = 1 << max(K - 1, 0).bit_length()
+    return sum(range(1, n.bit_length()))
+
+
 def kernel_plan(n_pairs: int, K1: int, K2: int) -> dict:
     """Launch plan of one call: one warp per pair, WARPS pairs a block, a
-    grid of ceil(n_pairs / WARPS) blocks.  Raises for a pad width the
+    grid of ceil(n_pairs / WARPS) blocks; each side's bitonic network (its
+    steps: SORT_KEYS compares a lane each).  Raises for a pad width the
     kernel does not take (1 ≤ K ≤ MAX_K a side)."""
     if not (1 <= K1 <= MAX_K and 1 <= K2 <= MAX_K):
         raise ValueError(f"wasserstein_h0_cuda: pad widths ({K1}, {K2}) outside "
                          f"1..{MAX_K}")
     return dict(threads=THREADS, pairs_per_block=WARPS, smem_bytes=SMEM_BYTES,
                 grid=-(-n_pairs // WARPS), columns_per_lane=COLS,
-                sort_compares=K1 * K1 + K2 * K2, dp_cells=K1 * (K2 + 1))
+                sort_keys_per_lane=SORT_KEYS,
+                sort_steps=(_network_steps(K1), _network_steps(K2)),
+                dp_cells=K1 * (K2 + 1))
+
+
+def scan_is_exact(halves) -> bool:
+    """The kernel's test for taking cumw by a warp scan: the exponents of the
+    nonzero finite float32 halves b / 2 (max(E, 1), E the biased exponent)
+    span at most 29 − ceil(log2 K2), so every partial sum, in any order, is
+    exact in float64 and the scan's prefixes are the sequential sum's."""
+    import numpy as np
+
+    h = np.asarray(halves, np.float32)
+    fin = h[np.isfinite(h) & (h != 0)]
+    if fin.size == 0:
+        return True
+    e = np.maximum((fin.view(np.uint32) >> 23) & 0xFF, 1).astype(int)
+    K2 = h.size
+    return int(e.max() - e.min()) <= 29 - (K2 - 1).bit_length()
 
 
 def build(verbose: bool = False) -> Path:

@@ -8,9 +8,13 @@ pads) and the staged path's (64, 128), with all-pad sides and tied deaths.
 Tolerance against JAX: rtol and atol 1e-6 — the only float sum is cumw =
 cumsum(bcol / 2), which torch's CPU cumsum accumulates in float64 and
 rounds a prefix at a time, and XLA in another order.  The kernel's model
-sums cumw as torch's CPU cumsum does, and takes every other float32
-operation of the plain loop in the same order (a min has no rounding), so
-it equals the plain loop bit for bit."""
+sorts each side by the kernel's bitonic network of keys, sums cumw by the
+kernel's warp scan where every partial sum is exact in float64
+(`scan_is_exact`, whose premise the `cumw` tests check: there the scan's
+prefixes are torch's CPU cumsum's) and in column order elsewhere, and takes
+every other float32 operation of the plain loop in the same order (a min
+has no rounding), so it equals the plain loop bit for bit."""
+import fractions
 import ctypes
 
 import jax.numpy as jnp
@@ -62,31 +66,81 @@ def _sort_key(v):
     return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
 
 
+def _key_value(k):
+    """The value of a sort key (the kernel's key_value)."""
+    k = np.asarray(k, np.uint32)
+    return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k).astype(np.uint32).view(np.float32)
+
+
+def _bitonic(keys):
+    """The kernel's bitonic network over the next power of two ≥ K slots,
+    slots past K holding the largest key: each slot s keeps the min or the
+    max of itself and s ^ j, by stage k and distance j."""
+    K = len(keys)
+    n = 1 << max(K - 1, 0).bit_length()
+    v = np.full(n, 0xFFFFFFFF, np.uint32)
+    v[:K] = keys
+    s = np.arange(n)
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j:
+            o = v[s ^ j]
+            keep_min = ((s & k) == 0) == ((s & j) == 0)
+            v = np.where(keep_min, np.minimum(v, o), np.maximum(v, o))
+            j >>= 1
+        k <<= 1
+    return v[:K]
+
+
+def _cumw_sequential(b):
+    """cumsum([0, b] / 2) as torch's CPU cumsum takes it: float64 sums in
+    column order, each prefix rounded once."""
+    f32 = np.float32
+    cw = np.empty(len(b) + 1, np.float32)
+    acc = 0.0
+    for j in range(len(b) + 1):
+        acc += float(b[j - 1] / f32(2)) if j else 0.0
+        cw[j] = f32(acc)
+    return cw
+
+
+def _scan64(b, lanes=32, cols=th0.COLS):
+    """The kernel's warp scan of cumw before rounding: lane l sums its
+    columns 5 l + [0, 5) of [0, b] / 2 in float64 in order, a Kogge-Stone
+    scan over the lanes' totals, then each column's float64 prefix."""
+    col = np.zeros(lanes * cols)
+    col[1:len(b) + 1] = (np.asarray(b, np.float32) / np.float32(2)).astype(np.float64)
+    part = np.cumsum(col.reshape(lanes, cols), axis=1)
+    tot = part[:, -1].copy()
+    o = 1
+    while o < lanes:
+        tot = tot + np.concatenate([np.zeros(o), tot[:-o]])
+        o <<= 1
+    before = np.concatenate([[0.0], tot[:-1]])
+    return (before[:, None] + part).reshape(-1)[:len(b) + 1]
+
+
+def _cumw_scan(b):
+    """cumw as the kernel's warp scan gives it: `_scan64` rounded once."""
+    return _scan64(b).astype(np.float32)
+
+
 def _kernel_model(d1, m1, d2, m2):
-    """numpy model of csrc/wasserstein_h0.cu, one pair at a time: the rank
-    sort of each side, cumw summed in float64 in column order and rounded
-    once a prefix, and per row the float32 operations of the plain loop, the
+    """numpy model of csrc/wasserstein_h0.cu, one pair at a time: each side
+    sorted by the bitonic network of its keys and read back as values, cumw
+    by the warp scan where `scan_is_exact` holds and in column order
+    elsewhere, and per row the float32 operations of the plain loop, the
     prefix min over five columns a lane, then over the lanes."""
     out = np.empty(d1.shape[0], np.float32)
     f32 = np.float32
     for p in range(d1.shape[0]):
-        sides = []
-        for d, m in ((d1[p], m1[p]), (d2[p], m2[p])):
-            v = np.where(m, d, f32(0)).astype(np.float32)
-            k = _sort_key(v)
-            idx = np.arange(len(v))
-            rank = [(k < k[s]).sum() + ((k == k[s]) & (idx < s)).sum() for s in idx]
-            srt = np.empty_like(v)
-            srt[rank] = v
-            sides.append(srt)
-        a, b = sides
+        a, b = (_key_value(_bitonic(_sort_key(np.where(m, d, f32(0)))))
+                for d, m in ((d1[p], m1[p]), (d2[p], m2[p])))
         K2 = len(b)
         bcol = np.concatenate([[f32(0)], b]).astype(np.float32)
-        cw = np.empty(K2 + 1, np.float32)
-        acc = 0.0
-        for j in range(K2 + 1):
-            acc += float(bcol[j] / f32(2)) if j else 0.0
-            cw[j] = f32(acc)
+        exact = th0.scan_is_exact(b / f32(2))
+        cw = _cumw_scan(b) if exact else _cumw_sequential(b)
         lanes = -(-(K2 + 1) // 5)
         row = cw.copy()
         for ai in a:
@@ -145,6 +199,82 @@ def test_sort_key_orders_values_as_torch_does():
     assert k[1] == k[3] and k[2] == k[4] and k[2] > k[5]
 
 
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 46, 64, 123, 128])
+def test_bitonic_network_sorts_as_torch(K):
+    """The kernel's register sort: its bitonic network over the next power
+    of two ≥ K slots (pad keys last) orders the keys, and the values read
+    back from them are torch.sort's (-0.0 read back as +0.0, which equals
+    it; every NaN last)."""
+    rng = np.random.default_rng(K)
+    v = rng.exponential(0.5, K).astype(np.float32)
+    v[rng.random(K) < 0.2] = 0.0
+    v[rng.random(K) < 0.1] = -0.0
+    v[rng.random(K) < 0.05] = np.nan
+    v[: K // 4] = np.round(v[: K // 4] * 4) / 4           # ties
+    keys = _bitonic(_sort_key(v))
+    np.testing.assert_array_equal(keys, np.sort(_sort_key(v)))
+    ref = torch.sort(torch.as_tensor(v)).values.numpy()
+    np.testing.assert_array_equal(_key_value(keys), ref)
+
+
+def _spread_halves(spread, K2=128, all_ones=True, seed=0):
+    """K2 - 1 sorted deaths whose halves lie in the binade 2^(E_hi − 127) and
+    one death whose half lies `spread` binades below, mantissas all ones
+    (the worst case for exactness) or random."""
+    rng = np.random.default_rng(seed)
+    e_hi = 127
+    mant = np.full(K2, 0x7FFFFF, np.uint32) if all_ones else \
+        rng.integers(0, 1 << 23, K2).astype(np.uint32)
+    exps = np.full(K2, e_hi, np.uint32)
+    exps[0] = e_hi - spread
+    halves = ((exps << 23) | mant).view(np.float32)
+    return np.sort(halves * np.float32(2))
+
+
+CUMW_CASES = ["main", "staged", "boundary", "boundary_random", "spread", "one_past"]
+
+
+@pytest.mark.parametrize("case", CUMW_CASES)
+def test_cumw_scan_premise(case):
+    """Premise of the kernel's cumw: where `scan_is_exact` holds (the halves'
+    exponents span at most 29 − ceil(log2 K2) binades), every float64 sum
+    the warp scan forms is exact — it equals the exact rational sum — so
+    its prefixes are torch's CPU cumsum's bit for bit; on the study-shaped
+    and staged pairs it holds for every pair.  One binade past the bound a
+    sum can be inexact, and a 1e-9 death beside deaths of ~1 spans ~30
+    binades: there the kernel takes the sequential sum, and its model still
+    equals the plain loop."""
+    if case in SHAPES:
+        d1, m1, d2, m2 = _h0_pairs(*SHAPES[case], n=300 if case == "main" else 40)
+        bs = [np.sort(np.where(m, d, np.float32(0))) for d, m in zip(d2, m2)]
+        assert all(th0.scan_is_exact(b / np.float32(2)) for b in bs)
+        for b in bs:
+            np.testing.assert_array_equal(_cumw_scan(b), _cumw_sequential(b))
+            plain = torch.cumsum(torch.cat([torch.zeros(1), torch.as_tensor(b)]) / 2.0, 0)
+            np.testing.assert_array_equal(_cumw_scan(b), plain.numpy())
+        return
+    if case == "spread":
+        d1, m1, d2, m2 = _h0_pairs(46, 123, n=8, seed=5)
+        d2[:, 0], m2[:, 0] = np.float32(1e-9), True
+        d2[:, 1:], m2[:, 1:] = np.float32(1.0) + d2[:, 1:] % 1, True
+        for d in d2:
+            assert not th0.scan_is_exact(np.sort(d) / np.float32(2))
+        plain = tw.wasserstein_h0_exact_plain(*(_t(x) for x in (d1, m1, d2, m2))).numpy()
+        np.testing.assert_array_equal(_kernel_model(d1, m1, d2, m2), plain)
+        return
+    spread = 29 - 7 + (case == "one_past")
+    b = _spread_halves(spread, all_ones=case != "boundary_random")
+    halves = (b / np.float32(2)).astype(np.float64)
+    exact = np.cumsum([fractions.Fraction(0)] + [fractions.Fraction(float(h)) for h in halves])
+    if case == "one_past":             # the exact prefixes need more than 53 bits
+        assert not th0.scan_is_exact(b / np.float32(2))
+        assert any(fractions.Fraction(float(x)) != x for x in exact)
+        return
+    assert th0.scan_is_exact(b / np.float32(2))
+    np.testing.assert_array_equal([fractions.Fraction(float(x)) for x in _scan64(b)], exact)
+    np.testing.assert_array_equal(_cumw_scan(b), _cumw_sequential(b))
+
+
 def test_router_takes_plain_on_cpu_and_launcher_refuses_cpu():
     args = [_t(x) for x in _h0_pairs(*SHAPES["main"], n=8)]
     before = th0.wasserstein_h0_cuda.launches
@@ -185,7 +315,10 @@ def test_kernel_plan_within_limits(K1, K2):
     assert plan["threads"] == 32 * plan["pairs_per_block"] <= 1024
     assert plan["grid"] * plan["pairs_per_block"] >= 4800
     assert 32 * plan["columns_per_lane"] >= K2 + 1
-    assert plan["smem_bytes"] == th0.WARPS * 4 * (4 * th0.MAX_K + 1) <= cuda_build.SMEM_LIMIT
+    assert plan["smem_bytes"] == th0.WARPS * 4 * (3 * th0.MAX_K + 1) <= cuda_build.SMEM_LIMIT
+    assert 32 * plan["sort_keys_per_lane"] == th0.MAX_K
+    assert plan["sort_steps"] == tuple(sum(range(1, (1 << max(k - 1, 0).bit_length())
+                                                 .bit_length())) for k in (K1, K2))
     assert plan["threads"] * 255 <= cuda_build.REGS_PER_SM
     for bad in ((0, 5), (5, 0), (129, 5), (5, 129)):
         with pytest.raises(ValueError):
@@ -219,6 +352,9 @@ def _card_cases():
     d1, m1, d2, m2 = _h0_pairs(46, 123, n=64, seed=3)
     d1[::3, 0] = np.nan                     # NaN deaths (valid slots)
     cases["nan"] = (d1, m1, d2, m2)
+    d1, m1, d2, m2 = _h0_pairs(46, 123, n=64, seed=4)
+    d2[::2, 0], m2[::2, 0] = np.float32(1e-9), True     # cumw in column order
+    cases["spread"] = (d1, m1, d2, m2)
     return cases
 
 
@@ -226,7 +362,9 @@ def _card_cases():
 def test_kernel_matches_plain_on_card():
     """On a CUDA card: one launch a call, bit for bit equal to the plain loop
     on the CPU (NaN where it is NaN), within 1e-6 of the card's plain loop
-    (its cumsum sums in another order), and the same from strided rows."""
+    (its cumsum sums in another order), and the same from strided rows;
+    `spread` pairs (a 1e-9 death beside deaths of ~1) take lane 0's
+    sequential cumw, the others the warp scan."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
     print(f"layout: {th0.layout_report()}")

@@ -140,86 +140,121 @@ def _nanmax(a, b):
     return torch.where(torch.isnan(a) | (a > b), a, b)
 
 
-def _kernel_model(b1, d1, m1, b2, d2, m2, chunk=tsl.CHUNK):
-    """torch model of csrc/sinkhorn_log.cu, vectorised over pairs: the bars
-    compacted to the front as float64 (the [[0, 0]] sentinel for an empty
-    side), the cost matrix at each pair's own width in the kernel's layout
-    (rows [side-1 bars | side-2 helpers], columns [side-2 bars | side-1
-    slots], each block padded to a multiple of the chunk with entries of
-    exponent -inf, which add nothing), float64 duals, and each half-step's
-    logsumexp online in chunks: the chunk's max rescales the float64 sum by
-    expf, the chunk's expf terms summed in float32 in order."""
-    K1, K2 = b1.shape[1], b2.shape[1]
+M0 = -1e300                  # a lane's running max before its first entry
+
+
+def _exp32(x):
+    """expf of the exponent rounded to float32, back in float64."""
+    return torch.exp(x.float()).double()
+
+
+def _lse_lanes(x, L, chunk=tsl.CHUNK):
+    """(N, R, E) float64 exponents (-inf: no entry) → (N, R), each line's
+    logsumexp as the kernel takes it at L lanes: lane l walks entries l, l +
+    L, l + 2L, … online in chunks (the chunk's max rescales the float64 sum
+    by expf when it exceeds the running max, the chunk's expf terms summed in
+    float32 in order), then the lanes' (max, sum) merged by xor 1, 2, 4 in
+    that order: m = max, s = s_a e^(m_a − m) + s_b e^(m_b − m)."""
+    N, R, E = x.shape
+    per = -(-E // (L * chunk)) * chunk
+    x = torch.nn.functional.pad(x, (0, per * L - E), value=-torch.inf).view(N, R, per, L)
+    m = torch.full((N, R, L), M0, dtype=torch.float64)
+    s = torch.zeros((N, R, L), dtype=torch.float64)
+    for k0 in range(0, per, chunk):
+        xc = x[:, :, k0:k0 + chunk]
+        cm = xc.amax(2)
+        up = cm > m
+        s = torch.where(up, s * _exp32(m - cm), s)
+        m = torch.where(up, cm, m)
+        cs = torch.zeros((N, R, L), dtype=torch.float32)
+        for q in range(chunk):
+            cs = cs + torch.exp((xc[:, :, q] - m).float())
+        s = s + cs.double()
+    lane, o = torch.arange(L), 1
+    while o < L:
+        mo, so = m[..., lane ^ o], s[..., lane ^ o]
+        mm = torch.maximum(m, mo)
+        s = s * _exp32(m - mm) + so * _exp32(mo - mm)
+        m, o = mm, 2 * o
+    return m[..., 0] + torch.log(s[..., 0])
+
+
+def _kernel_model(b1, d1, m1, b2, d2, m2):
+    """torch model of csrc/sinkhorn_log.cu: the bars compacted to the front as
+    float64 (the [[0, 0]] sentinel for an empty side), each pair's cost
+    matrix at its own width S = n1 + n2 in the kernel's layout (rows [side-1
+    bars | side-2 helpers], columns [side-2 bars | side-1 slots]), the duals
+    float64 in units of the rung's ε (rescaled when the rung changes), and
+    each half-step's logsumexp split over the pair's `tsl.lanes(S)` lanes
+    (`_lse_lanes`)."""
+    K1 = b1.shape[1]
     sides = []
     for b, d, m in ((b1, d1, m1), (b2, d2, m2)):
         b, d, m = tprog._compact_rows(b, d, m)
-        n = m.sum(1)
         b, d = torch.where(m, b, 0.0).double(), torch.where(m, d, 0.0).double()
-        m = m.clone()
-        m[:, 0] |= n == 0
-        sides.append((b, d, 0.5 * (d - b), m, torch.clamp(n, min=1)))
-    (b1, d1, h1, m1, n1), (b2, d2, h2, m2, n2) = sides
-    A1 = -(-int(n1.max()) // chunk) * chunk
-    A2 = -(-int(n2.max()) // chunk) * chunk
-    b1, d1, h1, m1 = (x[:, :A1] for x in (b1, d1, h1, m1))
-    b2, d2, h2, m2 = (x[:, :A2] for x in (b2, d2, h2, m2))
-    if A1 > K1:
-        b1, d1, h1, m1 = (torch.nn.functional.pad(x, (0, A1 - K1)) for x in (b1, d1, h1, m1))
-    if A2 > K2:
-        b2, d2, h2, m2 = (torch.nn.functional.pad(x, (0, A2 - K2)) for x in (b2, d2, h2, m2))
-    N = b1.shape[0]
+        sides.append((b, d, 0.5 * (d - b), torch.clamp(m.sum(1), min=1)))
+    (b1, d1, h1, n1), (b2, d2, h2, n2) = sides
+    v1 = torch.arange(b1.shape[1])[None] < n1[:, None]
+    v2 = torch.arange(b2.shape[1])[None] < n2[:, None]
     dul = _nanmax((b1[:, :, None] - b2[:, None, :]).abs(), (d1[:, :, None] - d2[:, None, :]).abs())
-    vv = m1[:, :, None] & m2[:, None, :]
+    vv = v1[:, :, None] & v2[:, None, :]
     zero = torch.zeros((), dtype=torch.float64)
     blocker = torch.where(vv, dul, zero).amax(dim=(1, 2))
-    h1max = torch.where(m1, h1, -torch.inf).amax(dim=1)
+    h1max = torch.where(v1, h1, -torch.inf).amax(dim=1)
     h1max = torch.where(n1 < K1, _nanmax(h1max, zero), h1max)
     blocker2 = _nanmax(blocker, h1max)
     real = lambda x: x < 1e8   # noqa: E731
     top = torch.stack([torch.where(vv & real(dul), dul, zero).amax(dim=(1, 2)),
-                       torch.where(m1 & real(h1), h1, zero).amax(dim=1),
-                       torch.where(m2 & real(h2), h2, zero).amax(dim=1)]).amax(0)
+                       torch.where(v1 & real(h1), h1, zero).amax(dim=1),
+                       torch.where(v2 & real(h2), h2, zero).amax(dim=1)]).amax(0)
     scale = torch.clamp(top.float(), min=1e-9)
     big_m = (1e3 * scale).double()
-    eye1 = torch.arange(A1)[:, None] == torch.arange(A1)[None, :]
-    eye2 = torch.arange(A2)[:, None] == torch.arange(A2)[None, :]
-    tr = torch.where(eye1, h1[:, :, None], blocker[:, None, None])
-    bl = torch.where(eye2, h2[:, None, :], blocker2[:, None, None])
-    D = torch.cat([torch.cat([dul, tr], 2),
-                   torch.cat([bl, torch.zeros(N, A2, A1, dtype=torch.float64)], 2)], 1)
-    rows = torch.cat([m1, m2], 1)
-    cols = torch.cat([m2, m1], 1)
-    valid = rows[:, :, None] & cols[:, None, :]
+    N, S = b1.shape[0], n1 + n2
+    W = int(S.max())
+    D = torch.zeros(N, W, W, dtype=torch.float64)
+    valid = torch.zeros(N, W, W, dtype=torch.bool)
+    helper_slot = torch.zeros(N, W, W, dtype=torch.bool)
+    for p in range(N):
+        a, c, w = int(n1[p]), int(n2[p]), int(S[p])
+        tr = torch.where(torch.eye(a, dtype=torch.bool), h1[p, :a, None].expand(a, a), blocker[p])
+        bl = torch.where(torch.eye(c, dtype=torch.bool), h2[p, None, :c].expand(c, c),
+                         blocker2[p])
+        D[p, :w, :w] = torch.cat([torch.cat([dul[p, :a, :c], tr], 1),
+                                  torch.cat([bl, torch.zeros(c, a, dtype=torch.float64)], 1)], 0)
+        valid[p, :w, :w] = True
+        helper_slot[p, a:w, c:w] = True
     Dm = torch.where(real(D), D, big_m[:, None, None])
+    lines = torch.arange(W)[None] < S[:, None]
+    by_lanes = {}
+    for p, w in enumerate(S.tolist()):
+        by_lanes.setdefault(tsl.lanes(w), []).append(p)
 
-    def lse(x):                          # (N, rows, entries) → (N, rows)
-        m = torch.full(x.shape[:2], -torch.inf, dtype=torch.float64)
-        s = torch.zeros(x.shape[:2], dtype=torch.float64)
-        for e0 in range(0, x.shape[2], chunk):
-            xc = x[:, :, e0:e0 + chunk]
-            cm = xc.amax(-1)
-            up = cm > m
-            s = torch.where(up, s * torch.exp((m - cm).float()).double(), s)
-            m = torch.where(up, cm, m)
-            cs = torch.zeros(x.shape[:2], dtype=torch.float32)
-            for q in range(chunk):
-                cs = cs + torch.exp((xc[:, :, q] - m).float())
-            s = s + cs.double()
-        return m + torch.log(s)
+    def lse(x):                          # (N, lines, entries) → (N, lines)
+        out = torch.empty(x.shape[:2], dtype=torch.float64)
+        for L, idx in by_lanes.items():
+            out[idx] = _lse_lanes(x[idx], L)
+        return out
 
-    f = torch.zeros(N, A1 + A2, dtype=torch.float64)
-    g = torch.zeros(N, A2 + A1, dtype=torch.float64)
+    F = torch.zeros(N, W, dtype=torch.float64)
+    G = torch.zeros(N, W, dtype=torch.float64)
+    eps_prev = None
     for eps_rel in tsl.eps_ladder():
-        eps = (torch.tensor(eps_rel) * scale).double()[:, None]
+        eps = (torch.tensor(eps_rel) * scale).double()
+        inv = (1.0 / eps)[:, None, None]
+        if eps_prev is not None:
+            r = (eps_prev * (1.0 / eps))[:, None]
+            F, G = F * r, G * r
         for _ in range(tsl.ITERS):
-            x = torch.where(valid, (g[:, None, :] - Dm) / eps[:, :, None], -torch.inf)
-            f = torch.where(rows, -eps * lse(x), 0.0)
-            x = torch.where(valid, (f[:, :, None] - Dm) / eps[:, :, None], -torch.inf)
-            g = torch.where(cols, -eps * lse(x.transpose(1, 2)), 0.0)
+            F = torch.where(lines, -lse(torch.where(valid, G[:, None, :] - Dm * inv, -torch.inf)),
+                            0.0)
+            G = torch.where(lines, -lse(torch.where(valid, F[:, :, None] - Dm * inv,
+                                                    -torch.inf).transpose(1, 2)), 0.0)
+        eps_prev = eps
     inv_lo = 1.0 / (torch.tensor(tsl.EPS_LO, dtype=torch.float32) * scale).double()
-    P = torch.exp(((f[:, :, None] + g[:, None, :] - D) * inv_lo[:, None, None]).float())
-    keep = valid & real(D)
-    return torch.where(keep, P.double() * D, zero).sum(dim=(1, 2))
+    r = (eps_prev * inv_lo)[:, None, None]
+    P = _exp32((F[:, :, None] + G[:, None, :]) * r - Dm * inv_lo[:, None, None])
+    keep = valid & real(D) & ~helper_slot
+    return torch.where(keep, P * Dm, zero).sum(dim=(1, 2))
 
 
 @pytest.mark.parametrize("K", [40, 128])
@@ -294,6 +329,44 @@ def test_kernel_plan_within_limits(K1, K2):
             tsl.kernel_plan(1, *bad)
 
 
+# own widths S = n1 + n2 at the lanes' boundaries, and the lanes a line there
+LANE_CASES = {2: 8, 32: 8, 33: 4, 64: 4, 65: 2, 128: 2, 129: 1, 256: 1}
+
+
+def _lane_of(lane, L, apart):
+    """csrc's lane_of within a warp: (line, l) of a lane, the L lanes of a
+    line side by side or 32 / L apart."""
+    per = 32 // L
+    return (lane % per, lane // per) if apart else (lane // L, lane % L)
+
+
+@pytest.mark.parametrize("S", sorted(LANE_CASES))
+def test_kernel_plan_lanes_at_boundaries(S):
+    """The lanes a line at each boundary of S (the largest power of two with
+    S × L ≤ THREADS, at most 8), the entries a lane walks, and the table's
+    row stride: for every n2 at that L, each half-warp's 16 addresses of a
+    64-bit table load differ mod 16 doubles in the row pass (lines read
+    along a table row) and in the column pass (along a column), with the
+    lanes placed as the kernel places them."""
+    L = tsl.lanes(S)
+    assert L == LANE_CASES[S]
+    assert S * L <= tsl.THREADS and (L == 8 or 2 * L * S > tsl.THREADS)
+    K1 = S // 2
+    plan = tsl.kernel_plan(7, K1, S - K1)
+    assert plan["max_entries_per_lane"] == -(-S // L) and plan["threads"] == tsl.THREADS
+    assert tsl.lanes(S) == next(l for top, l in plan["lane_bounds"] if S <= top)
+    for n2 in range(1, min(S, tsl.MAX_K) + 1):
+        P = tsl.table_pitch(n2, L)
+        assert n2 <= P < n2 + 8
+        for row, apart in ((True, L == 8), (False, L in (2, 8))):
+            for half in (range(16), range(16, 32)):
+                addr = set()
+                for lane in half:
+                    g, l = _lane_of(lane, L, apart)
+                    addr.add((g * P + l if row else l * P + g) % 16)
+                assert len(addr) == 16, (S, n2, P, row)
+
+
 class _FakeLib:
     def __init__(self, report):
         self.report = report
@@ -310,7 +383,7 @@ def test_launcher_raises_when_the_library_disagrees_with_the_plan():
     good = dict(threads=plan["threads"], smem_bytes=plan["smem_bytes"], registers=90,
                 local_bytes=0, occupancy=4)
     assert tsl.check_layout(_FakeLib(good)) == good
-    for change in (dict(threads=256), dict(smem_bytes=4096), dict(registers=600),
+    for change in (dict(threads=128), dict(smem_bytes=4096), dict(registers=600),
                    dict(occupancy=0)):
         with pytest.raises(RuntimeError, match="disagree"):
             tsl.check_layout(_FakeLib(dict(good, **change)))
@@ -354,6 +427,9 @@ def test_nan_birth_pairs_reference_rounds_as_float32():
 def _card_cases():
     cases = {f"K{K}": _pairs(K, *CASES[K]) for K in sorted(CASES)}
     cases["nan_births"] = _nan_birth_pairs()
+    # a pair at each lanes' boundary of S (both sides at 1 bar or more)
+    c1 = [max(S // 2, 1) for S in sorted(LANE_CASES)]
+    cases["lane_bounds"] = _pairs(128, c1, [S - c for S, c in zip(sorted(LANE_CASES), c1)])
     return cases
 
 
@@ -364,7 +440,9 @@ def test_kernel_matches_plain_on_card():
     of the plain version, and within 2e-4 of the plain float32 version on
     every pair where that version is itself within 1e-4 of its float64 run.
     Where it is not (pairs of a few bars, NaN births: float32 rounding of
-    the plain version, which JAX's shares), the float64 gate alone holds."""
+    the plain version, which JAX's shares), the float64 gate alone holds.
+    `lane_bounds` puts a pair at each boundary of S, so every lane count
+    (8, 4, 2, 1) and both cost routes (the table, the bars) run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
     print(f"layout: {tsl.layout_report()}")
