@@ -95,7 +95,8 @@ Phases, each fatal on failure:
  11. two processes on the card: `cli.main(["features", ...,
      "--coordinator", ..., "--num-processes", "2", "--process-id", i])`
      (what `python -m tda_eeg_audio_tpu_torch.cli` runs) as two
-     subprocesses over gloo on cuda:0 on phase 9's kind of .mat files, then
+     subprocesses over gloo on cuda:0 (pinned to the loopback interface,
+     where they meet) on phase 9's kind of .mat files, then
      `--merge-partials` and one single-process run in this process: X, y
      and subjects equal bit for bit; in the same two ranks
      `parallel.sharding.sharded_stats_step` equal to this process's
@@ -116,8 +117,10 @@ Phases, each fatal on failure:
      arena 128) whatever tuning.json holds;
  13. the un-tiered log-domain Sinkhorn kernel through its router
      (`sinkhorn_cost_pairs`) against the plain version on the card, on the
-     pairs phase 6's control redo handed it and on 112 pairs made from a
-     seed (0–128 bars a side, empty sides): within rtol 2e-4 of the plain
+     pairs phase 6's control redo handed it, on 112 pairs made from a seed
+     (0–128 bars a side, empty sides) and on those pairs with a NaN birth
+     in every masked slot (what an all-NaN window leaves there; the
+     results bit for bit the seeded set's): within rtol 2e-4 of the plain
      float32 version and 1e-4 of its float64 run, the same NaN / inf, one
      launch a call, no host synchronisation (set_sync_debug_mode("error")),
      timed beside the plain version, peak memory a call, the bound at each
@@ -128,6 +131,13 @@ Phases, each fatal on failure:
      all-pad and single-bar rows and on phase 6's 4,800 (a batch of 64
      recordings' worth): within rtol 1e-6, one launch a call, bit for bit
      against the CPU's plain loop (a reading), timed, its bound;
+ 14. the runner's data-parallel mesh: `StudyRunner(mesh=[cuda:i, cuda:i])`,
+     two shards on this card, over phase 6's store with the bank on: at
+     eeg_batch 32 each shard runs one of phase 6's batches of 16, and X and
+     the detailed rows must equal phase 6's bit for bit; at eeg_batch 16
+     (shards of 8) they are held to phase 6's under phase 12's gates; in
+     both runs every shard must launch the H1 reduction, H1 phase 1, the
+     tiered Sinkhorn and the exact H0 DP (counted per shard, printed);
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package, nor scikit-learn or
 matplotlib.
@@ -140,6 +150,7 @@ import csv
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -194,6 +205,12 @@ H0_RTOL = 1e-6
 # phase 13's sets for the exact H0 kernel: phase 4's batch of 16 recordings,
 # staged pads, and four of phase 6's batches (the 4,800 pairs of a batch of 64)
 H0_SETS = ("main", "staged", "batch64")
+# phase 13's sets for kernel A: phase 6's control pairs, seeded pairs, and
+# the seeded pairs with a NaN birth in every masked slot
+SINKHORN_LOG_SETS = ("control", "seeded", "masked_nan")
+# phase 14: the kernels that every shard of the runner's mesh launches (the
+# wrappers' names in runner_phase)
+SHARD_KERNELS = ("launches", "phase1_launches", "sinkhorn_launches", "h0_launches")
 # the stage of the main path that runs the kernel at one shape only
 STAGE_OF_N = {47: "features", 124: "mismatch_audio"}
 # phase 10's sosfiltfilt cases: 2 ragged recordings, the main path's batch of
@@ -1025,6 +1042,18 @@ def sinkhorn_log_seeded_pairs(dev, n: int = 112, K: int = 128, seed: int = 11):
                  for x in (*study_bars(rng, c1, K), *study_bars(rng, c2, K)))
 
 
+def masked_nan_births(pairs):
+    """Phase 13's third set: `pairs` with a NaN birth in every masked slot,
+    what an all-NaN window leaves in the slots of its diagram that hold no
+    bar.  The kernel reads the bars of valid slots only, so its results on
+    this set equal those on `pairs` bit for bit."""
+    import torch
+
+    b1, d1, m1, b2, d2, m2 = pairs
+    return (torch.where(m1, b1, torch.nan), d1, m1,
+            torch.where(m2, b2, torch.nan), d2, m2)
+
+
 def sinkhorn_log_bound(pairs, clock_hz):
     """The un-tiered Sinkhorn's least time on these pairs: 481 S² expf a
     pair (480 logsumexp half-steps and the result) over the SFU rate at the
@@ -1049,7 +1078,7 @@ def sinkhorn_log_bound(pairs, clock_hz):
                 S_pad=K1 + K2)
 
 
-def sinkhorn_log_check(sets, clock_hz):
+def sinkhorn_log_check(sets, clock_hz, same_bits=()):
     """Phase 13, kernel A: the un-tiered Sinkhorn kernel through its router
     (`sinkhorn_cost_pairs`) against the plain version on the card, on each
     set of pairs: within SINKHORN_LOG_RTOL of each plain float32 value and
@@ -1057,8 +1086,9 @@ def sinkhorn_log_check(sets, clock_hz):
     NaN / inf pattern, one launch a call; timed (CUDA events), the plain
     version timed, peak device memory a call of both, the bound at each
     pair's own width and at the pad width; once under
-    `torch.cuda.set_sync_debug_mode("error")`.  The launches made here are
-    not counted."""
+    `torch.cuda.set_sync_debug_mode("error")`; for each (a, b) of
+    `same_bits`, whether the kernel's results on sets a and b are equal bit
+    for bit.  The launches made here are not counted."""
     import torch
 
     from tda_eeg_audio_tpu_torch.ops import sinkhorn_log_cuda as SL
@@ -1112,6 +1142,9 @@ def sinkhorn_log_check(sets, clock_hz):
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
     res["no_host_sync"] = True
+    for a, b in same_bits:
+        res[a][f"same_bits_as_{b}"] = bool(torch.equal(
+            sinkhorn_cost_pairs(*sets[a]), sinkhorn_cost_pairs(*sets[b])))
     SL.sinkhorn_log_cuda.launches = launches0
     return res
 
@@ -1179,14 +1212,16 @@ def h0_check(sets):
 
 def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                  feature_na_max=NA_FEAT, comparison_spans=False,
-                 control_spans=False):
+                 control_spans=False, mesh=None):
     """The whole study on the store through the runner's three entry points
     at the given knobs, each stage between two device synchronisations, the
     kernels' launch counts zeroed just before and read per stage; with
     `comparison_spans` / `control_spans`, that stage's parts timed by its
     own spans (summed over its batches; every span synchronises, so the
-    stage's seconds then include them).  Returns (report, problems, X, the
-    comparison's detailed rows)."""
+    stage's seconds then include them).  With a `mesh`, the runner's
+    data-parallel shards, and the launches of SHARD_KERNELS counted per
+    shard (the report's `shard_launches`).  Returns (report, problems, X,
+    the comparison's detailed rows)."""
     import numpy as np
 
     from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
@@ -1210,7 +1245,21 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
     with tempfile.TemporaryDirectory() as td:
         runner = StudyRunner(store, cfg, eeg_batch=eeg_batch,
                              eeg_bank=eeg_bank, feature_na_max=feature_na_max,
-                             results_dir=td, verbose=False)
+                             results_dir=td, verbose=False, mesh=mesh)
+        shard_launches = None
+        if mesh is not None:
+            # each shard's launches: those made between its turn and the next
+            shard_launches = [dict.fromkeys(SHARD_KERNELS, 0) for _ in mesh]
+            shards, per = runner._shards, runner.eeg_batch // len(mesh)
+
+            def counted(idxs):
+                for dev, part, sl in shards(idxs):
+                    before = {k: wrappers[k].launches for k in SHARD_KERNELS}
+                    yield dev, part, sl
+                    for k in SHARD_KERNELS:
+                        shard_launches[sl.start // per][k] += wrappers[k].launches - before[k]
+
+            runner._shards = counted
         redone0 = run_tda.redone
         for w in wrappers.values():
             w.launches = 0
@@ -1280,6 +1329,9 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
         problems.append(f"wasserstein_h0 launches by stage {counts['h0_launches']}")
     if counts["sinkhorn_log_launches"]["control"] < 1:
         problems.append(f"sinkhorn_log launches by stage {counts['sinkhorn_log_launches']}")
+    if shard_launches is not None and not all(
+            all(c[k] > 0 for k in SHARD_KERNELS) for c in shard_launches):
+        problems.append(f"launches by shard {shard_launches}")
     expect = {"eeg_audio_tda_comparison.json", "eeg_audio_tda_detailed.csv",
               "matched_vs_mismatched.json"}
     if set(artifacts) != expect:
@@ -1307,6 +1359,9 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                   w_h1_p={b: cmp_out["band_results"][b]["wass_h1_p"]
                           for b in BAND_NAMES},
                   control_p={b: ctl[b]["p"] for b in BAND_NAMES})
+    if shard_launches is not None:
+        report["mesh"] = [str(d) for d in runner.mesh]
+        report["shard_launches"] = shard_launches
     if comparison_spans:
         report["comparison_spans_ms"] = dict(parts)
     if control_spans:
@@ -1355,6 +1410,58 @@ def rows_ratio(rows, ref):
             elif rb[k] != v:
                 bad.add(k)
     return sorted(bad), ratio
+
+
+def same_rows(rows, ref) -> bool:
+    """Detailed rows equal field for field, bit for bit (NaN where the other
+    row has NaN)."""
+    def same(a, b):
+        return a == b or (isinstance(a, float) and isinstance(b, float)
+                          and a != a and b != b)
+
+    return len(rows) == len(ref) and all(
+        r.keys() == q.keys() and all(same(r[k], q[k]) for k in q)
+        for r, q in zip(rows, ref))
+
+
+def mesh_phase(store, cfg, x_ref, rows_ref):
+    """Phase 14: the runner with a data-parallel mesh of two shards on this
+    card (`mesh=[cuda:i, cuda:i]`) over phase 6's store, against phase 6's
+    single-device run (X `x_ref`, detailed rows `rows_ref`, eeg_batch
+    B_REC).  At eeg_batch 2 · B_REC each shard's batch is one of phase 6's
+    batches, so X and the rows must equal phase 6's bit for bit.  At eeg_batch
+    B_REC (shards of B_REC / 2) they are held under phase 12's gates (rows
+    within phase 5's tolerances, X within rtol 1e-4: a batch's shape may move
+    cuBLAS and cuFFT rounding), their bits a reading.  Every shard must
+    launch each of SHARD_KERNELS.  Returns (readout, {name: report},
+    problems)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    readout, reports, problems = {}, {}, []
+    for name, batch in (("shard_batch", 2 * B_REC), ("same_batch", B_REC)):
+        report, prob, X, rows = runner_phase(store, cfg, eeg_batch=batch, mesh=[dev, dev])
+        reports[name] = report
+        problems += [f"{name}: {p}" for p in prob]
+        bad, ratio = rows_ratio(rows, rows_ref)
+        readout[name] = dict(
+            eeg_batch=batch, recordings_a_shard_batch=batch // 2,
+            X_bit_for_bit=bool(np.array_equal(X, x_ref)),
+            rows_bit_for_bit=same_rows(rows, rows_ref),
+            X_max_abs_diff=float(np.abs(X - x_ref).max()),
+            X_ratio=float_ratio(X, x_ref, 1e-4), rows_mismatched=bad,
+            rows_ratio={k: round(v, 4) for k, v in ratio.items()},
+            seconds=report["seconds"], shard_launches=report["shard_launches"])
+    s = readout["shard_batch"]
+    if not (s["X_bit_for_bit"] and s["rows_bit_for_bit"]):
+        problems.append(f"two shards of phase 6's batch: X bit for bit "
+                        f"{s['X_bit_for_bit']}, rows {s['rows_bit_for_bit']}")
+    m = readout["same_batch"]
+    if m["rows_mismatched"] or m["X_ratio"] > 1.0:
+        problems.append(f"two shards at phase 6's eeg_batch: rows {m['rows_mismatched']}, "
+                        f"X ratio {m['X_ratio']}")
+    return readout, reports, problems
 
 
 def throughput_phase(dev):
@@ -1860,6 +1967,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_env() -> dict:
+    """Phase 11's ranks' environment: gloo pinned to the loopback interface,
+    where the ranks meet (127.0.0.1), instead of the one the host name
+    resolves to."""
+    return dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+
+
 def distributed_phase(timeout_s: float = 300.0):
     """Phase 11: two ranks of `features` on the card over gloo, partials +
     merge against one single-process run, and the sharded statistics step
@@ -1882,7 +1996,8 @@ def distributed_phase(timeout_s: float = 300.0):
             [sys.executable, str(Path(__file__).resolve()), "--phase11-rank",
              *common, "--results", str(td / "part"), "--coordinator",
              f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            env=rank_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
             for i in range(2)]
         outs = []
         try:
@@ -2237,7 +2352,7 @@ def main() -> int:
     # the control stage's parts timed by its spans; the pairs its exact
     # redo hands the un-tiered Sinkhorn and the comparison's exact-H0 pairs
     # kept for phase 13
-    (report, problems, x_fir, _), (wass_calls, h0_batches) = capture_calls(
+    (report, problems, x_fir, rows_fir), (wass_calls, h0_batches) = capture_calls(
         lambda: runner_phase(store, cfg, control_spans=True),
         (study_mod, "sinkhorn_cost_pairs"), (P, "wasserstein_h0_exact"))
     runner_launches = report["launches_total"]
@@ -2374,12 +2489,13 @@ def main() -> int:
     else:
         print("runner at the tuned knobs vs the defaults: not run, tuning.json "
               "holds the defaults", flush=True)
-    del store
 
     # ── phase 13: the un-tiered Sinkhorn and the exact H0 DP vs plain ──
-    sl = sinkhorn_log_check({"control": ctl_pairs,
-                             "seeded": sinkhorn_log_seeded_pairs(dev)}, clock_hz)
-    for name in ("control", "seeded"):
+    seeded = sinkhorn_log_seeded_pairs(dev)
+    sl = sinkhorn_log_check({"control": ctl_pairs, "seeded": seeded,
+                             "masked_nan": masked_nan_births(seeded)}, clock_hz,
+                            same_bits=[("masked_nan", "seeded")])
+    for name in SINKHORN_LOG_SETS:
         r = sl[name]
         print(f"sinkhorn_log vs plain {name} ({r['pairs']} pairs, S mean "
               f"{r['S_mean']:.1f} max {r['S_max']} at the pairs' own width, pad "
@@ -2413,15 +2529,31 @@ def main() -> int:
               f"{r['t_bytes']:.5f} ms / operations {r['t_ops']:.5f} ms", flush=True)
     print(f"wasserstein_h0 layout as the library reports it: {json.dumps(h0['layout'])}",
           flush=True)
-    bad = [k for k in ("control", "seeded") if not (
+    print(f"sinkhorn_log with a NaN birth in every masked slot: results bit for bit "
+          f"those of the seeded set {sl['masked_nan']['same_bits_as_seeded']}", flush=True)
+    bad = [k for k in SINKHORN_LOG_SETS if not (
         sl[k]["within"] and sl[k]["within_float64"] and sl[k]["same_nonfinite"]
         and sl[k]["launches_per_call"] == 1)]
+    if not sl["masked_nan"]["same_bits_as_seeded"]:
+        bad.append("masked_nan: not the seeded set's bits")
     bad += [k for k in H0_SETS if not (
         h0[k]["within"] and h0[k]["finite"] and h0[k]["launches_per_call"] == 1)]
     if bad or h0["main"]["pairs"] != B_REC * 5 * K_CMP \
             or h0["batch64"]["pairs"] != 4 * B_REC * 5 * K_CMP:
         print(f"FAIL: phase 13 kernels vs plain: {bad}", file=sys.stderr)
         return 1
+
+    # ── phase 14: the runner's data-parallel mesh, two shards on this card ──
+    mesh_readout, mesh_reports, problems = mesh_phase(store, cfg, x_fir, rows_fir)
+    print("runner mesh launches by shard (H1 reduction, H1 phase 1, tiered "
+          "Sinkhorn, exact H0): " + json.dumps(
+              {k: r["shard_launches"] for k, r in mesh_readout.items()}), flush=True)
+    print("runner mesh=[cuda, cuda] vs phase 6's single-device run: "
+          + json.dumps(mesh_readout), flush=True)
+    if problems:
+        print(f"FAIL: runner mesh: {problems}", file=sys.stderr)
+        return 1
+    del store
 
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
@@ -2433,13 +2565,16 @@ def main() -> int:
         replaces="tda_eeg_audio_tpu/ops/homology_pallas.py:190",
         launches=total + runner_launches + cli_launches
         + iir_report["launches_total"] + thr_launches
-        + sum(r["launches_total"] for r in (knob_reports or {}).values()),
+        + sum(r["launches_total"] for r in (knob_reports or {}).values())
+        + sum(r["launches_total"] for r in mesh_reports.values()),
         launches_by_path=dict(one_batch=launches, runner=report["launches"],
                               cli={k: r["launches"] for k, r in cli_report.items()},
                               runner_iir_scan=iir_report["launches"],
                               eeg_throughput=thr_launches,
                               runner_knobs={k: r["launches"] for k, r in
-                                            (knob_reports or {}).items()}),
+                                            (knob_reports or {}).items()},
+                              runner_mesh={k: r["launches"] for k, r in
+                                           mesh_reports.items()}),
         max_abs_err=max(r47["max_abs_err"], r124["max_abs_err"]),
         ms=r47["ms"] + r124["ms"], plain_ms=r47["plain_ms"] + r124["plain_ms"],
         bound_ms=max(t_bytes, t_ops),
@@ -2459,14 +2594,16 @@ def main() -> int:
         launches=p1_total + report["phase1_launches_total"]
         + sum(r["phase1_launches"] for r in cli_report.values())
         + iir_report["phase1_launches_total"] + thr_p1_launches
-        + sum(r["phase1_launches_total"] for r in (knob_reports or {}).values()),
+        + sum(r["phase1_launches_total"] for r in (knob_reports or {}).values())
+        + sum(r["phase1_launches_total"] for r in mesh_reports.values()),
         launches_by_path=dict(
             one_batch=p1_launches, runner=report["phase1_launches"],
             cli={k: r["phase1_launches"] for k, r in cli_report.items()},
             runner_iir_scan=iir_report["phase1_launches"],
             eeg_throughput=thr_p1_launches,
             runner_knobs={k: r["phase1_launches"] for k, r in
-                          (knob_reports or {}).items()}),
+                          (knob_reports or {}).items()},
+            runner_mesh={k: r["phase1_launches"] for k, r in mesh_reports.items()}),
         max_abs_err=max(r["max_abs_err"] for r in p1.values()),
         # the main path's two shapes, summed: the launcher (one launch)
         # against the plain _phase1, the function the bound counts
@@ -2519,13 +2656,15 @@ def main() -> int:
         launches=sk_total + report["sinkhorn_launches_total"]
         + sum(r["sinkhorn_launches"] for r in cli_report.values())
         + iir_report["sinkhorn_launches_total"]
-        + sum(r["sinkhorn_launches_total"] for r in (knob_reports or {}).values()),
+        + sum(r["sinkhorn_launches_total"] for r in (knob_reports or {}).values())
+        + sum(r["sinkhorn_launches_total"] for r in mesh_reports.values()),
         launches_by_path=dict(
             one_batch=sk_launches, runner=report["sinkhorn_launches"],
             cli={k: r["sinkhorn_launches"] for k, r in cli_report.items()},
             runner_iir_scan=iir_report["sinkhorn_launches"],
             runner_knobs={k: r["sinkhorn_launches"] for k, r in
-                          (knob_reports or {}).items()}),
+                          (knob_reports or {}).items()},
+            runner_mesh={k: r["sinkhorn_launches"] for k, r in mesh_reports.items()}),
         max_abs_err=max(sk[k]["max_abs_err"] for k in ("main", "classes")),
         max_rel_err=max(sk[k]["max_rel_err"] for k in ("main", "classes")),
         ms=sk["main"]["ms"], plain_ms=sk["main"]["plain_ms"],
@@ -2549,15 +2688,17 @@ def main() -> int:
         launches=sl_total + report["sinkhorn_log_launches_total"]
         + sum(r["sinkhorn_log_launches"] for r in cli_report.values())
         + iir_report["sinkhorn_log_launches_total"]
-        + sum(r["sinkhorn_log_launches_total"] for r in (knob_reports or {}).values()),
+        + sum(r["sinkhorn_log_launches_total"] for r in (knob_reports or {}).values())
+        + sum(r["sinkhorn_log_launches_total"] for r in mesh_reports.values()),
         launches_by_path=dict(
             one_batch=sl_total, runner=report["sinkhorn_log_launches"],
             cli={k: r["sinkhorn_log_launches"] for k, r in cli_report.items()},
             runner_iir_scan=iir_report["sinkhorn_log_launches"],
             runner_knobs={k: r["sinkhorn_log_launches"] for k, r in
-                          (knob_reports or {}).items()}),
-        max_abs_err=max(sl[k]["max_abs_err"] for k in ("control", "seeded")),
-        max_rel_err=max(sl[k]["max_rel_err"] for k in ("control", "seeded")),
+                          (knob_reports or {}).items()},
+            runner_mesh={k: r["sinkhorn_log_launches"] for k, r in mesh_reports.items()}),
+        max_abs_err=max(sl[k]["max_abs_err"] for k in SINKHORN_LOG_SETS),
+        max_rel_err=max(sl[k]["max_rel_err"] for k in SINKHORN_LOG_SETS),
         ms=sl["control"]["ms"], plain_ms=sl["control"]["plain_ms"],
         bound_ms=max(sl["control"]["t_bytes"], sl["control"]["t_ops"]),
         bound_by="bytes" if sl["control"]["t_bytes"] >= sl["control"]["t_ops"]
@@ -2572,7 +2713,7 @@ def main() -> int:
                         max_rel_err_vs_float64=sl[k]["max_rel_err_vs_float64"],
                         plain_vs_float64=sl[k]["plain_vs_float64"],
                         nonfinite_bar_pairs=sl[k]["nonfinite_bar_pairs"])
-                for k in ("control", "seeded")},
+                for k in SINKHORN_LOG_SETS},
         layout=sl["layout"], no_host_sync=sl["no_host_sync"], held_against_plain=True),
         dict(
         name="wasserstein_h0", route="cuda",
@@ -2582,12 +2723,14 @@ def main() -> int:
         launches=h0_total + report["h0_launches_total"]
         + sum(r["h0_launches"] for r in cli_report.values())
         + iir_report["h0_launches_total"]
-        + sum(r["h0_launches_total"] for r in (knob_reports or {}).values()),
+        + sum(r["h0_launches_total"] for r in (knob_reports or {}).values())
+        + sum(r["h0_launches_total"] for r in mesh_reports.values()),
         launches_by_path=dict(
             one_batch=h0_launches, runner=report["h0_launches"],
             cli={k: r["h0_launches"] for k, r in cli_report.items()},
             runner_iir_scan=iir_report["h0_launches"],
-            runner_knobs={k: r["h0_launches"] for k, r in (knob_reports or {}).items()}),
+            runner_knobs={k: r["h0_launches"] for k, r in (knob_reports or {}).items()},
+            runner_mesh={k: r["h0_launches"] for k, r in mesh_reports.items()}),
         max_abs_err=max(h0[k]["max_abs_err"] for k in H0_SETS),
         ms=h0["main"]["ms"], plain_ms=h0["main"]["plain_ms"],
         bound_ms=max(h0["main"]["t_bytes"], h0["main"]["t_ops"]),

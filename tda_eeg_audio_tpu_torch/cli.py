@@ -27,7 +27,9 @@ touches no device.  Multi-process runs automate it: with
 MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK), each process joins one gloo
 group, binds to its card, takes `runtime.process_shard` of the recordings
 for `features` / `study` (unless a batch range is given) and writes its
-partial; `--merge-partials` then joins them.
+partial; `--merge-partials` then joins them.  In one process, `--mesh auto`
+(the default) shards each batch of the fused programs over every visible
+card when there are several (`StudyRunner(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -83,7 +85,7 @@ def _build_runner(args):
     return StudyRunner(ds, cfg, eeg_batch=args.batch, results_dir=args.results,
                        backend=args.backend, t_eeg_pad=args.t_eeg_pad,
                        t_audio_pad=args.t_audio_pad, n_rs_max=args.n_rs_max,
-                       device=dev)
+                       device=dev, mesh="auto" if args.mesh == "auto" else None)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -111,6 +113,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="host:port of process 0 for multi-process runs")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--mesh", choices=["auto", "off"], default="auto",
+                    help="auto (default): shard each batch of the fused "
+                         "features and comparison programs over every "
+                         "visible CUDA card when there are several (one "
+                         "process); off = one device")
     ap.add_argument("--backend", choices=["auto", "device", "host"],
                     default=None,
                     help="homology backend (default auto: the CUDA kernel on "

@@ -447,7 +447,8 @@ def comparison_from_bank(e_bank, gidx, n_e, audio, n_a, mis_h1, mis_n_win,
     stage's per-window diagram bank instead of recomputed.
 
     e_bank: flat (R, ·) leaves h1_b/h1_d/h1_m/h0_d/h0_m/feats of
-    `eeg_feature_program(return_bank=True)`, R = bank rows · 5 · K_feat;
+    `eeg_feature_program(return_bank=True)`, R = bank rows · 5 · K_feat, on
+    any device (the rows are gathered there and moved to `device`);
     gidx: (B·5·K,) flat indices of each recording's paired windows (the
     runner appends them to every bank row as mask=False columns).
 
@@ -476,8 +477,12 @@ def comparison_from_bank(e_bank, gidx, n_e, audio, n_a, mis_h1, mis_n_win,
                                aud["n_pts"].reshape(B, N_BANDS * K),
                                cfg.max_edge_length, 96, 8192)
     with span("bank_gather", dev):
-        g = {k: torch.as_tensor(e_bank[k], device=dev)[gidx]
-             for k in ("h1_b", "h1_d", "h1_m", "h0_d", "h0_m", "feats")}
+        # gathered where the bank lies (a runner's mesh keeps it on its
+        # first device), then the rows moved: the bank is not copied whole
+        g = {}
+        for k in ("h1_b", "h1_d", "h1_m", "h0_d", "h0_m", "feats"):
+            leaf = torch.as_tensor(e_bank[k])
+            g[k] = leaf[gidx.to(leaf.device)].to(dev, non_blocking=True)
         Wb = g["h1_m"].shape[1]
         if Wb < 96:
             e1 = tuple(torch.nn.functional.pad(g[k], (0, 96 - Wb))

@@ -23,9 +23,16 @@ distances on the device, every diagram on the host engine, no bank.  With
 staged path and match diagrams exactly on the host (persim's assignment,
 `native.engine.wasserstein_batch`); "sinkhorn" is the fused on-device path.
 
+Data parallelism (`mesh`): the fused features program and the fused
+comparison pass split every batch of `eeg_batch` recordings into dp
+contiguous slices, one a shard's device, as the reference's runner shards
+the batch axis over its device mesh.  Every shard's programs are issued
+before the stage reads anything back, and the outputs are gathered on the
+first device in shard order; the features stage's diagram bank is gathered
+there too.  The control's redo and the staged path run on the first device.
+
 Figures need matplotlib on the host; without it they are skipped with a
 logged `figures_skipped` event and every other artifact is written.
-Not ported: multi-device sharding.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std
 from ..ops.signal import resample_n_out
 from ..ops.wasserstein import sinkhorn_cost_pairs, wasserstein_h0_exact
-from ..runtime import resolve_device, span
+from ..runtime import process_rank_world, resolve_device, span
 from ..utils import logging as tlog
 from ..utils.profiling import GLOBAL_TIMES
 from ..utils.validation import issues_from_diagnostics, matrix_diagnostics
@@ -82,6 +89,13 @@ def _figures_module():
         return None
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """A CUDA device with its index (the current card for a bare "cuda")."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _ref_linspace_idx(n_win: int, k: int) -> np.ndarray:
     """The reference's even window subsample, np.linspace(0, n − 1, k,
     dtype=int): each side's own selection in the control."""
@@ -108,7 +122,15 @@ class StudyRunner:
     (None = cfg.homology_backend): "auto" / "device" take the fused device
     programs, "host" the staged path with every diagram on the host engine.
     `eeg_batch`, `eeg_bank` and `feature_na_max` left at None take the
-    measured values of `tuning.py`."""
+    measured values of `tuning.py`.
+
+    `mesh`: "auto" (every visible CUDA card, the runner's first, when the
+    fused programs run on a card, there are several and this process is not
+    one of a multi-process group; off otherwise), None (off), or a sequence
+    of devices, the data-parallel shards in order (repeats allowed; the
+    first is the runner's device).  Under a mesh `eeg_batch` rounds up to a
+    multiple of dp and shard s takes the slice [s·b, (s+1)·b) of every
+    batch, b = eeg_batch / dp.  A shard whose device is not there raises."""
 
     def __init__(self, dataset, cfg: PipelineConfig = DEFAULT_CONFIG,
                  eeg_batch: int | None = None,
@@ -116,7 +138,7 @@ class StudyRunner:
                  verbose: bool = True, eeg_bank: bool | None = None,
                  feature_na_max: int | None = None, t_eeg_pad: int = 5800,
                  t_audio_pad: int = 44100 * 24, n_rs_max: int = 5900,
-                 device=None, backend: str | None = None):
+                 device=None, backend: str | None = None, mesh="auto"):
         if cfg.wasserstein_backend not in WASSERSTEIN_BACKENDS:
             raise ValueError(f"wasserstein_backend {cfg.wasserstein_backend!r} "
                              f"not in {WASSERSTEIN_BACKENDS}")
@@ -169,10 +191,62 @@ class StudyRunner:
                                               m.get("error", "load failed")))
         else:
             self.device = resolve_device(device)
+        self.mesh = self._resolve_mesh(mesh, device is not None)
+        if self.mesh is not None:
+            dp = len(self.mesh)
+            self.eeg_batch = -(-self.eeg_batch // dp) * dp
+            if verbose:
+                print(f"mesh: dp={dp} over {[str(d) for d in self.mesh]}; "
+                      f"eeg_batch={self.eeg_batch}")
         self._fused_cache = None
         self._bank_served = self._bank_fallback = 0
         # what the exact redo did, per stage (recordings), for reports
         self.redo_counts = dict(features=0, comparison=0, control_deviants=0)
+
+    def _resolve_mesh(self, mesh, device_given: bool):
+        """The shards' devices (see the class), or None.  Without a store
+        the runner's device becomes the mesh's first unless `device` names
+        another, which raises, as does a store on another device."""
+        if mesh is None:
+            return None
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh {mesh!r}: 'auto', None or a sequence "
+                                 "of devices")
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 0
+            if not self.on_device or n < 2 or process_rank_world()[1] > 1:
+                return None
+            first = _indexed(self.device).index
+            return [torch.device("cuda", (first + k) % n) for k in range(n)]
+        devs = [_indexed(resolve_device(d)) for d in mesh]
+        if not devs:
+            raise ValueError("an empty mesh")
+        for d in devs:
+            if d.type == "cuda" and d.index >= torch.cuda.device_count():
+                raise RuntimeError(f"mesh device {d} is not available: "
+                                   f"{torch.cuda.device_count()} CUDA device(s)")
+        if self.store is None and not device_given:
+            self.device = devs[0]
+        if _indexed(self.device) != devs[0]:
+            raise ValueError(f"the mesh's first device {devs[0]} is not the "
+                             f"runner's device {self.device} (the store's, or "
+                             "`device`)")
+        return devs
+
+    def _shards(self, idxs):
+        """(device, recordings, their slice of the batch) of each
+        data-parallel shard of a batch: the runner's device and the whole
+        batch without a mesh; under one, shard s's contiguous slice
+        [s·b, (s+1)·b) of the batch, b = eeg_batch / dp, an empty slice
+        skipped."""
+        if self.mesh is None:
+            yield self.device, idxs, slice(0, len(idxs))
+            return
+        per = self.eeg_batch // len(self.mesh)
+        for s, dev in enumerate(self.mesh):
+            sl = slice(s * per, min((s + 1) * per, len(idxs)))
+            if sl.start < sl.stop:
+                yield dev, idxs[sl], sl
 
     @property
     def _fused(self) -> bool:
@@ -390,33 +464,36 @@ class StudyRunner:
         pending, bank_batches, bank_slot, n_rows = [], [], {}, 0
         for b0 in range(0, len(all_idx), self.eeg_batch):
             idxs = all_idx[b0:b0 + self.eeg_batch]
-            use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
             if not self.on_device:
+                use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
                 pending.append((self._staged_features(idxs, use_idx, use_mask),
                                 idxs))
                 continue
             eeg, _, ns_e, _, _ = self._load_batch(idxs)
-            outs = programs.eeg_feature_program(
-                eeg, ns_e, use_idx, use_mask, cfg, self.n_win_max, Kx,
-                na_max=self.feature_na_max, return_dm0=True,
-                return_bank=with_bank, device=self.device)
-            if with_bank:
-                bank = outs[3]
-                bank_ovf = bank.pop("ovf")
-                for b, i in enumerate(idxs):
-                    bank_slot[i] = n_rows + b
-                n_rows += len(idxs)
-                bank_batches.append(bank)
-                packed = programs.pack_feature_outputs(*outs[:3], bank_ovf)
-            else:
-                packed = programs.pack_feature_outputs(*outs[:3])
-            pending.append((packed, idxs))
+            for dev, part, sl in self._shards(idxs):
+                use_idx, use_mask = self._feature_window_sample(part, counts, K, Kx)
+                outs = programs.eeg_feature_program(
+                    eeg[sl].to(dev, non_blocking=True), ns_e[sl], use_idx,
+                    use_mask, cfg, self.n_win_max, Kx, na_max=self.feature_na_max,
+                    return_dm0=True, return_bank=with_bank, device=dev)
+                if with_bank:
+                    bank = outs[3]
+                    bank_ovf = bank.pop("ovf")
+                    for b, i in enumerate(part):
+                        bank_slot[i] = n_rows + b
+                    n_rows += len(part)
+                    bank_batches.append(bank)
+                    packed = programs.pack_feature_outputs(*outs[:3], bank_ovf)
+                else:
+                    packed = programs.pack_feature_outputs(*outs[:3])
+                pending.append((packed, part))
             if self.verbose:
                 print(f"  features: {b0 + len(idxs)}/{len(all_idx)} recordings "
                       f"dispatched ({time.time() - t0:.0f}s)")
 
         if self.on_device:      # the stage's one read-back
-            flat = torch.cat([p for p, _ in pending]).cpu().numpy()
+            flat = torch.cat([p.to(self.device, non_blocking=True)
+                              for p, _ in pending]).cpu().numpy()
             done, off = [], 0
             for packed, idxs in pending:
                 n = packed.shape[0]
@@ -581,10 +658,13 @@ class StudyRunner:
     @staticmethod
     def _h1_padded(out):
         """H1 (births, deaths, mask) tensors padded to K_H1 columns, finite
-        bars only — the reference's safe_wasserstein cleanup."""
+        bars only — the reference's safe_wasserstein cleanup.  A masked slot
+        holds (0, 0): an all-NaN window leaves NaN births in the slots that
+        hold no bar (a visible bar's birth is finite: its death exceeds it),
+        and no consumer reads a masked slot, but none receives a NaN."""
         b, d = out["births"][:, :K_H1], out["deaths"][:, :K_H1]
         m = out["mask"][:, :K_H1] & torch.isfinite(d)
-        d = torch.where(m, d, 0.0)
+        b, d = torch.where(m, b, 0.0), torch.where(m, d, 0.0)
         pad = (0, K_H1 - b.shape[1])
         return tuple(torch.nn.functional.pad(x, pad) for x in (b, d, m))
 
@@ -731,17 +811,19 @@ class StudyRunner:
                                  "overflow")}
         slot = {}
         for b0 in range(0, len(mis_list), self.eeg_batch):
-            idxs = mis_list[b0:b0 + self.eeg_batch]
-            _, audio, _, ns_a, metas = self._load_batch(idxs)
-            out = programs.audio_h1_program(
-                audio, ns_a, self.cfg, self.n_rs_max, self.n_win_max, K_CMP,
-                device=self.device)
-            for k in ("h1_b", "h1_d", "h1_m"):
-                parts[k].append(out[k].reshape(len(idxs), WB, -1))
-            for k in ("n_win", "degen", "overflow"):
-                parts[k].append(out[k])
-            for b, i in enumerate(idxs):
-                if not metas[b].get("failed"):
+            batch = mis_list[b0:b0 + self.eeg_batch]
+            _, audio_b, _, ns_a_b, metas_b = self._load_batch(batch)
+            for dev, idxs, sl in self._shards(batch):
+                out = programs.audio_h1_program(
+                    audio_b[sl].to(dev, non_blocking=True), ns_a_b[sl], self.cfg,
+                    self.n_rs_max, self.n_win_max, K_CMP, device=dev)
+                for k in ("h1_b", "h1_d", "h1_m"):
+                    parts[k].append(out[k].reshape(len(idxs), WB, -1)
+                                    .to(self.device, non_blocking=True))
+                for k in ("n_win", "degen", "overflow"):
+                    parts[k].append(out[k].to(self.device, non_blocking=True))
+            for b, i in enumerate(batch):
+                if not metas_b[b].get("failed"):
                     slot[i] = b0 + b
         if not mis_list:
             return None, {}
@@ -762,11 +844,13 @@ class StudyRunner:
 
     def _bank_flat(self):
         """The features stage's per-batch bank leaves as flat
-        (rows·5·K_feat, ·) device tensors, concatenated once, lazily."""
+        (rows·5·K_feat, ·) tensors on the runner's device (a mesh's shards
+        gathered onto its first), concatenated once, lazily."""
         bk = self._eeg_bank
         if bk["flat"] is None:
             bk["flat"] = {
-                k: torch.cat([b[k] for b in bk["batches"]]).flatten(0, 1)
+                k: torch.cat([b[k].to(self.device, non_blocking=True)
+                              for b in bk["batches"]]).flatten(0, 1)
                 for k in ("h1_b", "h1_d", "h1_m", "h0_d", "h0_m", "feats")}
             bk["batches"] = None      # free the un-flattened copies
         return bk["flat"]
@@ -832,49 +916,62 @@ class StudyRunner:
                         n_win=np.zeros(0, np.int64),
                         degen=np.zeros((0, N_BANDS, K_CMP), bool))
         zero_slot = bank["b"].shape[0] - 1
+        # the mismatch diagrams on each shard's device, so that a shard's
+        # gather (and the upload of its slots, which waits for the stream it
+        # joins) stays on its own device
+        mis_h1_on = {}
         self._bank_served = self._bank_fallback = 0
         t0 = time.time()
         all_idx = list(range(len(self.ds)))
         batches = []        # (packed, idxs, metas, has_mis, mis_degen)
         for b0 in range(0, len(all_idx), self.eeg_batch):
             idxs = all_idx[b0:b0 + self.eeg_batch]
-            eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
-            B = len(idxs)
-            slots = np.full(B, zero_slot, np.int64)
-            mis_n_win = np.zeros(B, np.int64)
-            mis_degen = np.zeros((B, N_BANDS, K_CMP), bool)
-            has_mis = np.zeros(B, bool)
-            for b, i in enumerate(idxs):
-                fn, subj, cond = self.ds.index[i]
-                u = mis_slot.get(mis_idx.get((subj, cond)))
-                if u is not None:
-                    has_mis[b] = True
-                    slots[b] = u
-                    mis_n_win[b] = bank["n_win"][u]
-                    mis_degen[b] = bank["degen"][u]
-            slots_d = self._dev(slots)
-            mis_args = (tuple(bank[k][slots_d].flatten(0, 1) for k in "bdm"),
-                        mis_n_win, mis_degen)
-            gidx = (self._bank_gather_idx(idxs, metas)
+            eeg_b, audio_b, ns_e_b, ns_a_b, metas_b = self._load_batch(idxs)
+            # the bank serves the whole batch or none of it
+            gidx = (self._bank_gather_idx(idxs, metas_b)
                     if self._eeg_bank is not None else None)
             if self._eeg_bank is not None:
                 self._bank_served += gidx is not None
                 self._bank_fallback += gidx is None
-            if gidx is not None:
-                out = programs.comparison_from_bank(
-                    self._bank_flat(), gidx, ns_e, audio, ns_a, *mis_args, cfg,
-                    self.n_win_max, self.n_rs_max, K_CMP,
-                    t_eeg_pad=eeg.shape[-1], device=self.device)
-            else:
-                out = programs.comparison_program(
-                    eeg, ns_e, audio, ns_a, *mis_args, cfg, self.n_win_max,
-                    self.n_rs_max, K_CMP, device=self.device)
-            batches.append((programs.pack_comparison_outputs(out), idxs, metas,
-                            has_mis, mis_degen))
+            for dev, part, sl in self._shards(idxs):
+                B = len(part)
+                ns_e, ns_a, metas = ns_e_b[sl], ns_a_b[sl], metas_b[sl]
+                slots = np.full(B, zero_slot, np.int64)
+                mis_n_win = np.zeros(B, np.int64)
+                mis_degen = np.zeros((B, N_BANDS, K_CMP), bool)
+                has_mis = np.zeros(B, bool)
+                for b, i in enumerate(part):
+                    fn, subj, cond = self.ds.index[i]
+                    u = mis_slot.get(mis_idx.get((subj, cond)))
+                    if u is not None:
+                        has_mis[b] = True
+                        slots[b] = u
+                        mis_n_win[b] = bank["n_win"][u]
+                        mis_degen[b] = bank["degen"][u]
+                if dev not in mis_h1_on:
+                    mis_h1_on[dev] = tuple(bank[k].to(dev) for k in "bdm")
+                slots_d = torch.as_tensor(slots, device=dev)
+                mis_args = (tuple(x[slots_d].flatten(0, 1) for x in mis_h1_on[dev]),
+                            mis_n_win, mis_degen)
+                audio = audio_b[sl].to(dev, non_blocking=True)
+                if gidx is not None:
+                    g = gidx.reshape(len(idxs), -1)[sl].reshape(-1)
+                    out = programs.comparison_from_bank(
+                        self._bank_flat(), g, ns_e, audio, ns_a, *mis_args, cfg,
+                        self.n_win_max, self.n_rs_max, K_CMP,
+                        t_eeg_pad=eeg_b.shape[-1], device=dev)
+                else:
+                    out = programs.comparison_program(
+                        eeg_b[sl].to(dev, non_blocking=True), ns_e, audio, ns_a,
+                        *mis_args, cfg, self.n_win_max, self.n_rs_max, K_CMP,
+                        device=dev)
+                batches.append((programs.pack_comparison_outputs(out), part,
+                                metas, has_mis, mis_degen))
             if self.verbose:
                 print(f"  fused compare: {b0 + len(idxs)}/{len(all_idx)} "
                       f"dispatched ({time.time() - t0:.0f}s)")
-        flat_all = (torch.cat([b[0] for b in batches]).cpu().numpy()
+        flat_all = (torch.cat([b[0].to(self.device, non_blocking=True)
+                               for b in batches]).cpu().numpy()
                     if batches else np.zeros(0, np.float32))
         rows, off = [], 0
         for packed, idxs, metas, has_mis, mis_degen in batches:

@@ -43,7 +43,9 @@ def h0_diagram(dm: torch.Tensor, valid: torch.Tensor | None = None,
     v = valid.reshape(-1, n).to(torch.bool)
     M = d.shape[0]
     big = torch.tensor(_BIG, dtype=d.dtype, device=dev)
-    d = torch.where(v[:, :, None] & v[:, None, :], d, big)
+    # a NaN distance is no edge (ripser's and the phase-1 sort's reading:
+    # NaN <= thresh is false), like an edge to a padding point
+    d = torch.where(v[:, :, None] & v[:, None, :] & ~torch.isnan(d), d, big)
     iota = torch.arange(n, device=dev)
     # root = first valid vertex (vertex 0 when none is)
     root = torch.where(v, iota, n).amin(dim=1).remainder(n)
@@ -52,7 +54,9 @@ def h0_diagram(dm: torch.Tensor, valid: torch.Tensor | None = None,
     dist = torch.where(in_tree | ~v, big, d[rows, root])
     deaths = torch.empty((M, max(n - 1, 0)), dtype=d.dtype, device=dev)
     for k in range(n - 1):
-        cand = torch.where(in_tree, big, dist)
+        # a tree vertex above every frontier one, so that a frontier with no
+        # edge left (all at `big`) still yields a new vertex
+        cand = torch.where(in_tree, torch.inf, dist)
         nxt = cand.argmin(dim=1)
         deaths[:, k] = cand[rows, nxt]
         in_tree = in_tree | (iota[None, :] == nxt[:, None])

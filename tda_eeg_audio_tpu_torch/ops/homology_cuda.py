@@ -141,10 +141,15 @@ def _load(profile: bool = False):
     return _libs[profile]
 
 
-@functools.lru_cache(maxsize=None)
 def blocks_per_sm(n: int, profile: bool = False) -> int:
-    """Blocks of `kernel_shape(n)` one SM holds, from the library; also
-    checks that the kernel lays out the bytes the plan reckons."""
+    """Blocks of `kernel_shape(n)` one SM of the current card holds, from
+    the library (asked once per card); also checks that the kernel lays out
+    the bytes the plan reckons."""
+    return _blocks_per_sm(n, profile, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(n: int, profile: bool, device: int) -> int:
     lib, shape = _load(profile), kernel_shape(n)
     threads = shape["threads"]
     if lib.h1_reduce_smem_bytes(n, shape["W"]) != shape["smem_bytes"]:

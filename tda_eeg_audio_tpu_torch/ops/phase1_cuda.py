@@ -118,10 +118,15 @@ def _load(profile: bool = False):
     return _libs[profile]
 
 
-@functools.lru_cache(maxsize=None)
 def blocks_per_sm(n: int, profile: bool = False) -> int:
-    """Blocks of `kernel_plan(n, ·)`'s shape one SM holds, from the library;
-    also checks that the kernel lays out the bytes the plan reckons."""
+    """Blocks of `kernel_plan(n, ·)`'s shape one SM of the current card
+    holds, from the library (asked once per card); also checks that the
+    kernel lays out the bytes the plan reckons."""
+    return _blocks_per_sm(n, profile, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(n: int, profile: bool, device: int) -> int:
     lib, plan = _load(profile), kernel_plan(n, 1)
     if lib.h1_phase1_smem_bytes(n) != plan["smem_bytes"]:
         raise RuntimeError("kernel_plan and csrc/h1_phase1.cu disagree on the "

@@ -131,9 +131,13 @@ def check_layout(lib) -> dict:
                                    kernel_plan(1, 1, 1), ("threads", "smem_bytes"), SRC)
 
 
-@functools.lru_cache(maxsize=None)
 def layout_report() -> dict:
-    """`check_layout` of the library, once per process."""
+    """`check_layout` of the library on the current card, once per card."""
+    return _layout_report(torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_report(device: int) -> dict:
     return check_layout(_load())
 
 

@@ -195,9 +195,14 @@ def check_layout(lib) -> dict:
     return reports
 
 
-@functools.lru_cache(maxsize=None)
 def layout_report(profile: bool = False) -> dict:
-    """`check_layout` of the (instrumented) library, once per process."""
+    """`check_layout` of the (instrumented) library on the current card,
+    once per card."""
+    return _layout_report(profile, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_report(profile: bool, device: int) -> dict:
     return check_layout(_load(profile))
 
 

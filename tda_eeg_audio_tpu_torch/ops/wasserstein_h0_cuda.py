@@ -115,9 +115,13 @@ def check_layout(lib) -> dict:
                                    ("threads", "pairs_per_block", "smem_bytes"), SRC)
 
 
-@functools.lru_cache(maxsize=None)
 def layout_report() -> dict:
-    """`check_layout` of the library, once per process."""
+    """`check_layout` of the library on the current card, once per card."""
+    return _layout_report(torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_report(device: int) -> dict:
     return check_layout(_load())
 
 

@@ -27,9 +27,14 @@ are kilobytes, so each is copied to the host and back; the compute stays on
 each rank's device.  Outside a process group both steps run on one process
 unchanged.
 
+In one process, the runner has a data-parallel mesh of its own
+(`StudyRunner(mesh=...)`, the CLI's `--mesh`): each batch of the fused
+features and comparison programs is split into contiguous slices, one a
+device, the outputs gathered on the first.
+
 Not ported: the JAX package's `make_mesh` and `shard_batch`, which place
 arrays on a GSPMD device mesh for XLA to partition — PyTorch has no
-counterpart, and the port's data parallelism is one process per card.
+counterpart; the runner splits its batches itself.
 """
 
 from __future__ import annotations

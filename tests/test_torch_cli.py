@@ -139,6 +139,28 @@ def test_profile_and_log(data, tmp_path):
     assert events[0] == "command_start" and "stage" in events
 
 
+@pytest.mark.parametrize("flag,mesh", [((), "auto"), (("--mesh", "auto"), "auto"),
+                                       (("--mesh", "off"), None)],
+                         ids=["default", "auto", "off"])
+def test_mesh_flag_reaches_the_runner(data, tmp_path, monkeypatch, flag, mesh):
+    """`--mesh auto|off` (the JAX CLI's choices and default) reaches the
+    runner as mesh="auto" / None; any other value is refused."""
+    from tda_eeg_audio_tpu_torch.models import study
+
+    seen = {}
+
+    def runner(*args, **kw):
+        seen.update(kw)
+        return "runner"
+
+    monkeypatch.setattr(study, "StudyRunner", runner)
+    args = cli._parser().parse_args(["features", "--data", str(data), "--results",
+                                     str(tmp_path), *CPU, *flag])
+    assert cli._build_runner(args) == "runner" and seen["mesh"] == mesh
+    with pytest.raises(SystemExit):
+        cli._parser().parse_args(["features", "--mesh", "on"])
+
+
 def test_cuda_without_a_card_raises(data, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -51,7 +51,9 @@ def _free_port():
 
 
 def _env():
-    env = dict(os.environ, OMP_NUM_THREADS="1",
+    # the ranks meet at 127.0.0.1; gloo takes its own device from the host
+    # name unless told otherwise, so it is pinned to the loopback interface
+    env = dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo",
                PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
     for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
         env.pop(k, None)
@@ -88,6 +90,16 @@ def test_single_process_is_a_noop(monkeypatch):
     with pytest.raises(ValueError):         # several processes need a coordinator
         runtime.init_distributed(None, 2, 0)
     assert not torch.distributed.is_initialized()
+
+
+def test_spawned_ranks_pin_gloo_to_loopback():
+    """The ranks meet at 127.0.0.1; gloo binds the interface that
+    GLOO_SOCKET_IFNAME names, and without it the one the host name resolves
+    to.  This file's ranks and chip_smoke.py's phase-11 ranks both pin it."""
+    import chip_smoke
+
+    assert _env()["GLOO_SOCKET_IFNAME"] == "lo"
+    assert chip_smoke.rank_env()["GLOO_SOCKET_IFNAME"] == "lo"
 
 
 def test_process_shard_partition_properties(monkeypatch):

@@ -79,11 +79,20 @@ def runs(tmp_path_factory):
                             t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
                             n_rs_max=N_RS_MAX)
     redone0 = run_tda.redone
-    tout = dict(features=tr.compute_feature_dataset(),
-                comparison=tr.run_comparison(n_permutations=100),
-                control=tr.run_control())
+    # the diagram pairs every `_wass_chunks` call receives
+    wass_calls, wass_chunks = [], tstudy.StudyRunner._wass_chunks
+
+    def capture(self, *pairs):
+        wass_calls.append([x.clone() for x in pairs])
+        return wass_chunks(self, *pairs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tstudy.StudyRunner, "_wass_chunks", capture)
+        tout = dict(features=tr.compute_feature_dataset(),
+                    comparison=tr.run_comparison(n_permutations=100),
+                    control=tr.run_control())
     return dict(jr=jr, tr=tr, j=jout, t=tout, jdir=jdir, tdir=tdir, ds=ds,
-                windows_redone=run_tda.redone - redone0)
+                windows_redone=run_tda.redone - redone0, wass_calls=wass_calls)
 
 
 WORST = {}      # largest |got − want| / allowed seen per kind of value
@@ -170,6 +179,17 @@ def test_control_matches_reference_with_exact_redo(runs):
         assert b["n"] == 3 and b["status"] == "insufficient"
         assert set(b["by_condition"]) == {"slow", "fast"}
     assert runs["windows_redone"] == 0
+
+
+def test_wass_chunks_receive_no_visible_nonfinite_birth(runs):
+    """Every diagram pair the study hands `_wass_chunks` (the control's
+    exact redo of the short recording) has finite births and deaths in its
+    valid slots and (0, 0) in its masked ones."""
+    assert runs["wass_calls"]
+    for b1, d1, m1, b2, d2, m2 in runs["wass_calls"]:
+        for b, d, m in ((b1, d1, m1), (b2, d2, m2)):
+            assert torch.isfinite(b[m]).all() and torch.isfinite(d[m]).all()
+            assert (b[~m] == 0).all() and (d[~m] == 0).all()
 
 
 def test_artifacts_have_the_reference_schemas(runs):

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 
 from tda_eeg_audio_tpu.ops import geometry as jgeo
 from tda_eeg_audio_tpu.ops import signal as jsig
-from tda_eeg_audio_tpu.oracle import signal_ref as ref
+from tda_eeg_audio_tpu_torch.oracle import signal_ref as ref
 from tda_eeg_audio_tpu_torch.ops import geometry as tgeo
 from tda_eeg_audio_tpu_torch.ops import signal as tsig
 

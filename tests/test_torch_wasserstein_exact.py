@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from tda_eeg_audio_tpu.native import engine as jengine
-from tda_eeg_audio_tpu.oracle.wasserstein_ref import safe_wasserstein
+from tda_eeg_audio_tpu_torch.oracle.wasserstein_ref import safe_wasserstein
 from tda_eeg_audio_tpu_torch.native import engine as tengine
 
 

@@ -29,6 +29,7 @@ from tda_eeg_audio_tpu.ops import wasserstein as jw
 from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
 from tda_eeg_audio_tpu_torch.models import programs as tprog
 from tda_eeg_audio_tpu_torch.models import study as tstudy
+from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
 from tda_eeg_audio_tpu_torch.ops import cuda_build
 from tda_eeg_audio_tpu_torch.ops import sinkhorn_log_cuda as tsl
 from tda_eeg_audio_tpu_torch.ops import wasserstein as tw
@@ -422,6 +423,70 @@ def test_nan_birth_pairs_reference_rounds_as_float32():
     np.testing.assert_allclose(model, f64, rtol=1e-4)
     assert _worst(plain[nanb], f64[nanb]) > 1e-2
     np.testing.assert_allclose(plain[~nanb], f64[~nanb], rtol=1e-4)
+
+
+def _nan_window_dms(n=24, seed=21):
+    """(30, n, n) distance matrices of the pipeline's NaN cases and of
+    generic windows: Pearson distances of EEG-like windows (10 plain, 5 with
+    one NaN channel, 5 all NaN), and the Takens clouds of a short envelope's
+    10 windows, the last 4 of which run past its end into the NaN fill of
+    `sliding_windows` (the reference's fill-mode gather)."""
+    from tda_eeg_audio_tpu_torch.ops import geometry, signal
+
+    rng = np.random.default_rng(seed)
+    w = torch.as_tensor(rng.standard_normal((20, n, 50)).astype(np.float32))
+    w[10:15, 3] = torch.nan
+    w[15:20] = torch.nan
+    eeg = geometry.correlation_to_distance(geometry.correlation_matrix(w))
+    env = torch.as_tensor(rng.standard_normal((1, 160)).astype(np.float32))
+    wins = signal.sliding_windows(env, 10, 50, 12)[0]          # 6..9 past 160
+    pts, pmask = signal.takens_embed(wins, torch.full((10,), 2), 3, 2, n)
+    dm = geometry.pairwise_distances(signal.minmax_normalize_points(pts, pmask),
+                                     pmask, pad_value=3.0)
+    return torch.cat([eeg, dm]).contiguous()
+
+
+@pytest.mark.parametrize("route", ["device", "redo", "host"])
+def test_no_visible_nan_birth_reaches_wass_chunks(route):
+    """Can the pipeline hand `_wass_chunks` a NaN birth?  The diagrams of
+    NaN windows and of a short envelope's NaN-filled windows, by the device
+    route (`run_tda` → the plain diagrams, as CPU tensors take them), with
+    the overflowed windows redone on the host engine, and by the host
+    engine alone, then `StudyRunner._h1_padded`: no slot with m True has a
+    non-finite birth or death (a visible bar needs death > birth, false for
+    NaN), and every masked slot reaches it as (0, 0).  On the device route
+    an all-NaN window leaves NaN births in its masked slots (the creator
+    list is empty and its slots gather the window's first, NaN weight)."""
+    dms = _nan_window_dms()
+    kw = dict(device={}, redo=dict(na_max=2), host=dict(backend="host"))[route]
+    out = run_tda(dms, 2.0, **kw)
+    if route == "redo":
+        assert out["redone"].any() and not out["redone"].all()
+    raw_b, raw_d, raw_m = out["births"], out["deaths"], out["mask"]
+    assert torch.isfinite(raw_b[raw_m]).all()
+    assert torch.isnan(raw_b[~raw_m]).any() == (route != "host")
+    b, d, m = tstudy.StudyRunner._h1_padded(out)
+    assert b.shape == (30, tstudy.K_H1) and m.any() and not m.all()
+    assert torch.isfinite(b[m]).all() and torch.isfinite(d[m]).all()
+    assert (d[m] > b[m]).all()
+    assert (b[~m] == 0).all() and (d[~m] == 0).all()
+
+
+def test_masked_nan_births_are_inert():
+    """NaN births in masked slots leave the plain version and the kernel's
+    model exactly where they are with those births set to 0: the cost
+    matrix selects a masked slot's values away, and the kernel (as its
+    model) reads the bars of valid slots only."""
+    b1, d1, m1, b2, d2, m2 = _pairs(40, *CASES[40])
+    zero = (np.where(m1, b1, 0.0), d1, m1, np.where(m2, b2, 0.0), d2, m2)
+    nan = (np.where(m1, b1, np.nan), d1, m1, np.where(m2, b2, np.nan), d2, m2)
+    assert np.isnan(nan[0]).any() and np.isnan(nan[3]).any()
+    assert torch.equal(tw.build_cost_matrix(*map(_t, nan)),
+                       tw.build_cost_matrix(*map(_t, zero)))
+    np.testing.assert_array_equal(_plain(nan), _plain(zero))
+    np.testing.assert_array_equal(_plain(nan, torch.float64), _plain(zero, torch.float64))
+    np.testing.assert_array_equal(_kernel_model(*map(_t, nan)).numpy(),
+                                  _kernel_model(*map(_t, zero)).numpy())
 
 
 def _card_cases():
