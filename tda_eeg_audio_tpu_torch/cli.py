@@ -35,11 +35,11 @@ card when there are several (`StudyRunner(mesh=...)`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import os
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -131,7 +131,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--permutations", type=int, default=None)
     ap.add_argument("--bootstrap", type=int, default=None)
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace + stage timings to DIR")
+                    help="write a torch.profiler trace, the spans' timings "
+                         "and the counters to DIR")
     ap.add_argument("--log", default=None, metavar="FILE",
                     help="structured JSON-lines event log")
     # padded shapes of the device batches: the study's defaults hold its
@@ -167,18 +168,24 @@ def main(argv=None) -> int:
         return 0
     runner = _build_runner(args)
 
+    from .runtime import last_record, logged_span, timed_spans
     from .utils import logging as tlog
-    from .utils.profiling import GLOBAL_TIMES, device_trace
+    from .utils.profiling import device_trace
 
-    t0 = time.time()
     tlog.LOGGER.event("command_start", command=args.command,
                       n_recordings=len(runner.ds))
-    with device_trace(args.profile):
-        with GLOBAL_TIMES.stage(args.command):
+    # --profile: the command is the top span of one timed block, whose
+    # record (every span's ms, calls, parent and self ms; the counters) is
+    # written beside the trace
+    timed = timed_spans() if args.profile else contextlib.nullcontext()
+    with device_trace(args.profile), timed:
+        with logged_span(args.command, runner.device):
             rc = _dispatch(args, runner, out_dir)
-    tlog.LOGGER.stage(args.command, time.time() - t0)
     if args.profile:
-        GLOBAL_TIMES.dump(Path(args.profile) / "stage_times.json")
+        rec = last_record()
+        prof = Path(args.profile)
+        (prof / "stage_times.json").write_text(json.dumps(rec["spans"], indent=2))
+        (prof / "counters.json").write_text(json.dumps(rec["counters"], indent=2))
     return rc
 
 

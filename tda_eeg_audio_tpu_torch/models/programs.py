@@ -28,10 +28,10 @@ from ..ops import signal as tsig
 from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std, diagram_features
 from ..ops.homology_cuda import h1_diagrams_cuda
-from ..ops.wasserstein import (W_TIERS, build_cost_matrix, sinkhorn_cost_stab,
-                               wasserstein_h0_exact)
+from ..ops.wasserstein import (ITERS, STEPS, W_TIERS, build_cost_matrix,
+                               sinkhorn_cost_stab, wasserstein_h0_exact)
 from ..ops.wasserstein_cuda import sinkhorn_tiered_cuda
-from ..runtime import resolve_device, span
+from ..runtime import count, counting, resolve_device, span
 
 N_BANDS = len(FREQ_BANDS)
 
@@ -155,8 +155,15 @@ def eeg_feature_program(eeg, n_samples, use_idx, use_mask,
     h1_b/h1_d/h1_m (B, 5·K, na_max) finite bars only, h0_d/h0_m
     (B, 5·K, n−1), feats (B, 5·K, 2, 11), and ovf (B,), which flags a
     truncated diagram on any column — such a row must not serve
-    `comparison_from_bank`."""
+    `comparison_from_bank`.  The call is the span `eeg_feature_program`."""
     dev = resolve_device(device)
+    with span("eeg_feature_program", dev):
+        return _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, n_win_max,
+                                    K, na_max, step_budget, return_dm0, return_bank, dev)
+
+
+def _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, n_win_max, K,
+                         na_max, step_budget, return_dm0, return_bank, dev):
     eeg = torch.as_tensor(eeg, device=dev, dtype=torch.float32)
     n_samples = torch.as_tensor(n_samples, device=dev).long()
     use_idx = torch.as_tensor(use_idx, device=dev).long()
@@ -238,10 +245,25 @@ def _wass_sinkhorn_tiered(b1, d1, m1, b2, d2, m2):
     tensor takes the plain version; a CUDA tensor launches the kernel
     (`ops/wasserstein_cuda.py`: one bucketing launch, then one launch per
     width class, five at the comparison's pad width; no host
-    synchronisation) or raises — there is no fallback."""
+    synchronisation) or raises — there is no fallback.  Inside a
+    `runtime.timed_spans()` block it counts its work (`count_sinkhorn_work`)."""
+    if counting():
+        count_sinkhorn_work(m1, m2)
     if b1.device.type == "cpu":
         return wass_sinkhorn_tiered_plain(b1, d1, m1, b2, d2, m2)
     return sinkhorn_tiered_cuda(*(x.contiguous() for x in (b1, d1, m1, b2, d2, m2)))
+
+
+def count_sinkhorn_work(m1, m2):
+    """Counters `sinkhorn_tiered.pairs` and `sinkhorn_tiered.flop`: per pair
+    4·S²·STEPS·ITERS (two S × S matvecs an iteration), S = n1 + n2 the
+    augmented problem's own size, each side's visible bars and at least one
+    (an empty diagram is the one [[0, 0]] bar).  Tiers, classes and pads
+    are not counted, whatever kernel solves the pairs.  The flop count is
+    summed on the masks' device."""
+    S = m1.sum(dim=1).clamp(min=1) + m2.sum(dim=1).clamp(min=1)
+    count("sinkhorn_tiered.pairs", m1.shape[0])
+    count("sinkhorn_tiered.flop", (S * S).sum() * (4 * STEPS * ITERS))
 
 
 def wass_sinkhorn_tiered_plain(b1, d1, m1, b2, d2, m2, chunk: int = 128):

@@ -54,9 +54,8 @@ from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std
 from ..ops.signal import resample_n_out
 from ..ops.wasserstein import sinkhorn_cost_pairs, wasserstein_h0_exact
-from ..runtime import process_rank_world, resolve_device, span
+from ..runtime import logged_span, process_rank_world, resolve_device, span
 from ..utils import logging as tlog
-from ..utils.profiling import GLOBAL_TIMES
 from ..utils.validation import issues_from_diagnostics, matrix_diagnostics
 from . import classify, homology_exec, programs
 from .classify import features_to_row
@@ -426,7 +425,31 @@ class StudyRunner:
         Failed and zero-window recordings get no row.  The fused path reads
         the stage back once; the staged path (`backend="host"`) computes the
         distances of every window on the device, selects the sampled ones
-        and reduces them on the host engine."""
+        and reduces them on the host engine.  Spans: `features` with
+        `features_index`, `features_dispatch` and `features_rows`."""
+        with logged_span("features", self.device) as log:
+            with span("features_index", self.device):
+                all_idx, counts, K, min_windows, skipped_zero = self._feature_index(
+                    max_windows_per_band, batch_start, batch_end)
+            with span("features_dispatch", self.device):
+                pending, bank_batches, bank_slot = self._feature_dispatch(all_idx, counts, K)
+            with span("features_rows", self.device):
+                X_rows, y, subjects, filenames, file_metadata = self._feature_rows(
+                    pending, counts, K, bank_slot)
+            if self.use_eeg_bank and bank_batches:
+                self._eeg_bank = dict(batches=bank_batches, slot=bank_slot,
+                                      K=K + K_CMP, K_base=K, flat=None)
+            log.update(items=len(all_idx) * N_BANDS * K, n_recordings=len(X_rows), K=K,
+                       n_failed=len(self.failed_files))
+        return (np.stack(X_rows), np.array(y), np.array(subjects), filenames,
+                dict(min_windows=min_windows, K=K,
+                     failed_files=[fn for fn, _ in self.failed_files],
+                     skipped_zero_window=skipped_zero,
+                     file_metadata=file_metadata))
+
+    def _feature_index(self, max_windows_per_band, batch_start, batch_end):
+        """(recordings in the reference's order, {recording: window count},
+        K, the least window count, the zero-window files skipped)."""
         cfg = self.cfg
         win, step = cfg.win_samples, cfg.step_samples
         by_name = lambda i: self.ds.index[i][0]  # noqa: E731
@@ -454,7 +477,14 @@ class StudyRunner:
         K = int(max_windows_per_band or max(counts.values()))
         if batch_start is not None or batch_end is not None:
             all_idx = all_idx[batch_start or 0:batch_end]
+        return all_idx, counts, K, min_windows, skipped_zero
 
+    def _feature_dispatch(self, all_idx, counts, K):
+        """The batch loop: each batch's programs issued, nothing read back.
+        Returns pending [(packed outputs, recordings)], the bank's batches
+        and {recording: bank row}.  Spans: `features_window_sample` and
+        (inside the program) `eeg_feature_program`, each once a batch."""
+        cfg = self.cfg
         t0 = time.time()
         with_bank = self.use_eeg_bank
         # bank mode: the comparison's paired windows ride the features
@@ -465,13 +495,15 @@ class StudyRunner:
         for b0 in range(0, len(all_idx), self.eeg_batch):
             idxs = all_idx[b0:b0 + self.eeg_batch]
             if not self.on_device:
-                use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
+                with span("features_window_sample", self.device):
+                    use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
                 pending.append((self._staged_features(idxs, use_idx, use_mask),
                                 idxs))
                 continue
             eeg, _, ns_e, _, _ = self._load_batch(idxs)
             for dev, part, sl in self._shards(idxs):
-                use_idx, use_mask = self._feature_window_sample(part, counts, K, Kx)
+                with span("features_window_sample", self.device):
+                    use_idx, use_mask = self._feature_window_sample(part, counts, K, Kx)
                 outs = programs.eeg_feature_program(
                     eeg[sl].to(dev, non_blocking=True), ns_e[sl], use_idx,
                     use_mask, cfg, self.n_win_max, Kx, na_max=self.feature_na_max,
@@ -490,7 +522,15 @@ class StudyRunner:
             if self.verbose:
                 print(f"  features: {b0 + len(idxs)}/{len(all_idx)} recordings "
                       f"dispatched ({time.time() - t0:.0f}s)")
+        return pending, bank_batches, bank_slot
 
+    def _feature_rows(self, pending, counts, K, bank_slot):
+        """The stage's one read-back, the exact redo of recordings whose used
+        windows overflowed (span `features_overflow_redo`), and the rows:
+        (X rows, y, subjects, filenames, file metadata).  Drops from
+        `bank_slot` the recordings the bank cannot serve."""
+        cfg = self.cfg
+        with_bank = self.use_eeg_bank
         if self.on_device:      # the stage's one read-back
             flat = torch.cat([p.to(self.device, non_blocking=True)
                               for p, _ in pending]).cpu().numpy()
@@ -504,8 +544,19 @@ class StudyRunner:
                              outs_h[3] if with_bank else None, idxs))
         else:   # the staged path's batches are on the host already
             done = [(*out, None, idxs) for out, idxs in pending]
+        with span("features_overflow_redo", self.device):
+            for agg, _, ovf, _, idxs in done:
+                for b, i in enumerate(idxs):
+                    if ovf[b] and i not in self._failed_idx:
+                        if self.verbose:
+                            print("  features: overflow → exact redo "
+                                  f"{self.ds.index[i][0]}")
+                        tlog.LOGGER.event("feature_overflow_redo",
+                                          file=self.ds.index[i][0])
+                        agg[b] = self._staged_feature_agg([i], counts, K)[0]
+                        self.redo_counts["features"] += 1
         X_rows, y, subjects, filenames, file_metadata = [], [], [], [], []
-        for agg, diag, ovf, bank_ovf, idxs in done:
+        for agg, diag, _, bank_ovf, idxs in done:
             for b, i in enumerate(idxs):
                 if i in self._failed_idx:   # failed on the batch's re-load
                     continue
@@ -515,14 +566,6 @@ class StudyRunner:
                     # comparison; the feature aggregate is redone only when
                     # a USED window overflowed
                     bank_slot.pop(i, None)
-                if ovf[b]:
-                    if self.verbose:
-                        print("  features: overflow → exact redo "
-                              f"{self.ds.index[i][0]}")
-                    tlog.LOGGER.event("feature_overflow_redo",
-                                      file=self.ds.index[i][0])
-                    agg[b] = self._staged_feature_agg([i], counts, K)[0]
-                    self.redo_counts["features"] += 1
                 X_rows.append(features_to_row(agg[b]))
                 fn, subj, cond = self.ds.index[i]
                 y.append(0 if cond == "slow" else 1)
@@ -540,18 +583,7 @@ class StudyRunner:
                     max_windows_per_band=K,
                     n_windows_total=nw * N_BANDS,
                     n_windows_used_total=used * N_BANDS))
-        if with_bank and bank_batches:
-            self._eeg_bank = dict(batches=bank_batches, slot=bank_slot,
-                                  K=Kx, K_base=K, flat=None)
-        tlog.LOGGER.stage("features", time.time() - t0,
-                          items=len(all_idx) * N_BANDS * K,
-                          n_recordings=len(X_rows), K=K,
-                          n_failed=len(self.failed_files))
-        return (np.stack(X_rows), np.array(y), np.array(subjects), filenames,
-                dict(min_windows=min_windows, K=K,
-                     failed_files=[fn for fn, _ in self.failed_files],
-                     skipped_zero_window=skipped_zero,
-                     file_metadata=file_metadata))
+        return X_rows, y, subjects, filenames, file_metadata
 
     def _staged_features(self, idxs, use_idx, use_mask):
         """The staged features path of one batch: the distances of every
@@ -902,11 +934,10 @@ class StudyRunner:
         if self._fused_cache is not None:
             return self._fused_cache
         cfg = self.cfg
-        mis_idx = self._mismatch_index()
-        t_mc = time.time()
-        bank, mis_slot = self._mismatch_diagram_cache(mis_idx)
-        tlog.LOGGER.stage("mismatch_cache", time.time() - t_mc,
-                          items=len(mis_slot))
+        with logged_span("mismatch_cache", self.device) as log:
+            mis_idx = self._mismatch_index()
+            bank, mis_slot = self._mismatch_diagram_cache(mis_idx)
+            log.update(items=len(mis_slot))
         WB = N_BANDS * K_CMP
         if bank is None:     # no opposite-condition file anywhere
             bank = dict(b=torch.zeros((1, WB, 96), device=self.device),
@@ -924,67 +955,68 @@ class StudyRunner:
         t0 = time.time()
         all_idx = list(range(len(self.ds)))
         batches = []        # (packed, idxs, metas, has_mis, mis_degen)
-        for b0 in range(0, len(all_idx), self.eeg_batch):
-            idxs = all_idx[b0:b0 + self.eeg_batch]
-            eeg_b, audio_b, ns_e_b, ns_a_b, metas_b = self._load_batch(idxs)
-            # the bank serves the whole batch or none of it
-            gidx = (self._bank_gather_idx(idxs, metas_b)
-                    if self._eeg_bank is not None else None)
-            if self._eeg_bank is not None:
-                self._bank_served += gidx is not None
-                self._bank_fallback += gidx is None
-            for dev, part, sl in self._shards(idxs):
-                B = len(part)
-                ns_e, ns_a, metas = ns_e_b[sl], ns_a_b[sl], metas_b[sl]
-                slots = np.full(B, zero_slot, np.int64)
-                mis_n_win = np.zeros(B, np.int64)
-                mis_degen = np.zeros((B, N_BANDS, K_CMP), bool)
-                has_mis = np.zeros(B, bool)
-                for b, i in enumerate(part):
-                    fn, subj, cond = self.ds.index[i]
-                    u = mis_slot.get(mis_idx.get((subj, cond)))
-                    if u is not None:
-                        has_mis[b] = True
-                        slots[b] = u
-                        mis_n_win[b] = bank["n_win"][u]
-                        mis_degen[b] = bank["degen"][u]
-                if dev not in mis_h1_on:
-                    mis_h1_on[dev] = tuple(bank[k].to(dev) for k in "bdm")
-                slots_d = torch.as_tensor(slots, device=dev)
-                mis_args = (tuple(x[slots_d].flatten(0, 1) for x in mis_h1_on[dev]),
-                            mis_n_win, mis_degen)
-                audio = audio_b[sl].to(dev, non_blocking=True)
-                if gidx is not None:
-                    g = gidx.reshape(len(idxs), -1)[sl].reshape(-1)
-                    out = programs.comparison_from_bank(
-                        self._bank_flat(), g, ns_e, audio, ns_a, *mis_args, cfg,
-                        self.n_win_max, self.n_rs_max, K_CMP,
-                        t_eeg_pad=eeg_b.shape[-1], device=dev)
-                else:
-                    out = programs.comparison_program(
-                        eeg_b[sl].to(dev, non_blocking=True), ns_e, audio, ns_a,
-                        *mis_args, cfg, self.n_win_max, self.n_rs_max, K_CMP,
-                        device=dev)
-                batches.append((programs.pack_comparison_outputs(out), part,
-                                metas, has_mis, mis_degen))
-            if self.verbose:
-                print(f"  fused compare: {b0 + len(idxs)}/{len(all_idx)} "
-                      f"dispatched ({time.time() - t0:.0f}s)")
-        flat_all = (torch.cat([b[0].to(self.device, non_blocking=True)
-                               for b in batches]).cpu().numpy()
-                    if batches else np.zeros(0, np.float32))
-        rows, off = [], 0
-        for packed, idxs, metas, has_mis, mis_degen in batches:
-            n = packed.shape[0]
-            out_h = programs.unpack_comparison_outputs(flat_all[off:off + n],
-                                                       len(idxs))
-            off += n
-            self._drain_fused(out_h, metas, has_mis, mis_degen, rows)
-        tlog.LOGGER.stage("fused_comparison", time.time() - t0,
-                          items=len(all_idx) * N_BANDS * K_CMP,
-                          n_mismatch_cached=len(mis_slot),
-                          bank_batches=self._bank_served,
-                          bank_fallback_batches=self._bank_fallback)
+        with logged_span("comparison_dispatch", self.device,
+                         items=len(all_idx) * N_BANDS * K_CMP,
+                         n_mismatch_cached=len(mis_slot)) as log:
+            for b0 in range(0, len(all_idx), self.eeg_batch):
+                idxs = all_idx[b0:b0 + self.eeg_batch]
+                eeg_b, audio_b, ns_e_b, ns_a_b, metas_b = self._load_batch(idxs)
+                # the bank serves the whole batch or none of it
+                gidx = (self._bank_gather_idx(idxs, metas_b)
+                        if self._eeg_bank is not None else None)
+                if self._eeg_bank is not None:
+                    self._bank_served += gidx is not None
+                    self._bank_fallback += gidx is None
+                for dev, part, sl in self._shards(idxs):
+                    B = len(part)
+                    ns_e, ns_a, metas = ns_e_b[sl], ns_a_b[sl], metas_b[sl]
+                    slots = np.full(B, zero_slot, np.int64)
+                    mis_n_win = np.zeros(B, np.int64)
+                    mis_degen = np.zeros((B, N_BANDS, K_CMP), bool)
+                    has_mis = np.zeros(B, bool)
+                    for b, i in enumerate(part):
+                        fn, subj, cond = self.ds.index[i]
+                        u = mis_slot.get(mis_idx.get((subj, cond)))
+                        if u is not None:
+                            has_mis[b] = True
+                            slots[b] = u
+                            mis_n_win[b] = bank["n_win"][u]
+                            mis_degen[b] = bank["degen"][u]
+                    if dev not in mis_h1_on:
+                        mis_h1_on[dev] = tuple(bank[k].to(dev) for k in "bdm")
+                    slots_d = torch.as_tensor(slots, device=dev)
+                    mis_args = (tuple(x[slots_d].flatten(0, 1) for x in mis_h1_on[dev]),
+                                mis_n_win, mis_degen)
+                    audio = audio_b[sl].to(dev, non_blocking=True)
+                    if gidx is not None:
+                        g = gidx.reshape(len(idxs), -1)[sl].reshape(-1)
+                        out = programs.comparison_from_bank(
+                            self._bank_flat(), g, ns_e, audio, ns_a, *mis_args, cfg,
+                            self.n_win_max, self.n_rs_max, K_CMP,
+                            t_eeg_pad=eeg_b.shape[-1], device=dev)
+                    else:
+                        out = programs.comparison_program(
+                            eeg_b[sl].to(dev, non_blocking=True), ns_e, audio, ns_a,
+                            *mis_args, cfg, self.n_win_max, self.n_rs_max, K_CMP,
+                            device=dev)
+                    batches.append((programs.pack_comparison_outputs(out), part,
+                                    metas, has_mis, mis_degen))
+                if self.verbose:
+                    print(f"  fused compare: {b0 + len(idxs)}/{len(all_idx)} "
+                          f"dispatched ({time.time() - t0:.0f}s)")
+            log.update(bank_batches=self._bank_served,
+                       bank_fallback_batches=self._bank_fallback)
+        with span("comparison_rows", self.device):
+            flat_all = (torch.cat([b[0].to(self.device, non_blocking=True)
+                                   for b in batches]).cpu().numpy()
+                        if batches else np.zeros(0, np.float32))
+            rows, off = [], 0
+            for packed, idxs, metas, has_mis, mis_degen in batches:
+                n = packed.shape[0]
+                out_h = programs.unpack_comparison_outputs(flat_all[off:off + n],
+                                                           len(idxs))
+                off += n
+                self._drain_fused(out_h, metas, has_mis, mis_degen, rows)
         n_ovf = sum(1 for r in rows if r.get("overflow"))
         if n_ovf:
             tlog.LOGGER.event("comparison_overflow", n_rows=n_ovf)
@@ -1024,33 +1056,36 @@ class StudyRunner:
         The fused pass (device backend, Sinkhorn) recomputes the recordings
         it flagged `overflow` through `_staged_comparison_rows` (exact
         diagrams); their flag stays set so the control stage redoes them
-        exactly too.  Otherwise every recording takes the staged path."""
-        n_perm = n_permutations or 1000
+        exactly too.  Otherwise every recording takes the staged path.
+        Spans: `comparison` with the fused pass's `mismatch_cache`,
+        `comparison_dispatch` and `comparison_rows`, then `comparison_redo`
+        and the statistics' `band_stats` and `results_write`."""
+        with span("comparison", self.device):
+            return self._comparison(n_permutations or 1000)
+
+    def _comparison(self, n_perm: int) -> dict:
         if not self._fused:
             rows = self._staged_comparison_rows(list(range(len(self.ds))))
             return self._comparison_stats(rows, n_perm)
         rows = [r for r in self._fused_rows() if r["n_windows"] > 0]
         ovf_keys = sorted({(r["filename"], r["condition"])
                            for r in rows if r.get("overflow")})
-        if ovf_keys:
-            if self.verbose:
-                print(f"  comparison: {len(ovf_keys)} overflow recordings → "
-                      "exact redo")
-            idx_map = {(fn, cond): i for i, (fn, subj, cond)
-                       in enumerate(self.ds.index)}
-            redo = {(r["filename"], r["condition"], r["band"]): r
-                    for r in self._staged_comparison_rows(
-                        [idx_map[k] for k in ovf_keys])}
-            self.redo_counts["comparison"] += len(ovf_keys)
-            for ri, r in enumerate(rows):
-                s = redo.get((r["filename"], r["condition"], r["band"]))
-                if s is not None:
-                    rows[ri] = {**r, **s, "overflow": True}
-        t_st = time.time()
-        out = self._comparison_stats(rows, n_perm)
-        tlog.LOGGER.stage("comparison_stats", time.time() - t_st,
-                          items=len(rows))
-        return out
+        with span("comparison_redo", self.device):
+            if ovf_keys:
+                if self.verbose:
+                    print(f"  comparison: {len(ovf_keys)} overflow recordings → "
+                          "exact redo")
+                idx_map = {(fn, cond): i for i, (fn, subj, cond)
+                           in enumerate(self.ds.index)}
+                redo = {(r["filename"], r["condition"], r["band"]): r
+                        for r in self._staged_comparison_rows(
+                            [idx_map[k] for k in ovf_keys])}
+                self.redo_counts["comparison"] += len(ovf_keys)
+                for ri, r in enumerate(rows):
+                    s = redo.get((r["filename"], r["condition"], r["band"]))
+                    if s is not None:
+                        rows[ri] = {**r, **s, "overflow": True}
+        return self._comparison_stats(rows, n_perm)
 
     def _staged_comparison_rows(self, all_idx) -> list[dict]:
         """Comparison rows through the staged pipeline: diagrams from
@@ -1149,7 +1184,24 @@ class StudyRunner:
     def _comparison_stats(self, rows, n_perm, signs=None) -> dict:
         """Band statistics — reference tda_eeg_audio_comparison.py:161-221.
         The sign-flip draws come from a generator seeded with 42 on the
-        runner's device, or from `signs` (n_perm, 5, n_max) when given."""
+        runner's device, or from `signs` (n_perm, 5, n_max) when given.
+        Spans: `band_stats` (the statistics), `results_write` (the files)."""
+        with logged_span("band_stats", self.device, items=len(rows)):
+            out = self._band_stats(rows, n_perm, signs)
+        if self.results_dir:
+            with span("results_write", self.device):
+                self.results_dir.mkdir(parents=True, exist_ok=True)
+                slim = {k: v for k, v in out.items() if k != "detailed_rows"}
+                (self.results_dir / "eeg_audio_tda_comparison.json").write_text(
+                    json.dumps(slim, indent=2, default=str))
+                self._write_detailed_csv(rows)
+                figures = _figures_module()
+                if figures:
+                    figures.comparison_figures(rows, out["band_results"],
+                                               self.results_dir)
+        return out
+
+    def _band_stats(self, rows, n_perm, signs) -> dict:
         per = defaultdict(lambda: defaultdict(list))
         for r in rows:
             per[r["band"]][(r["subject"], r["condition"])].append(r)
@@ -1215,7 +1267,7 @@ class StudyRunner:
             stats_out[band]["wass_h1_p_fdr"] = float(p_fdr[i])
             stats_out[band]["wass_h1_sig_fdr"] = bool(reject[i])
 
-        out = {
+        return {
             "analysis": "EEG-Audio Topological Comparison",
             "method": "Wasserstein distance on persistence diagrams + temporal feature correlation",
             "audio_construction": f"Takens embedding (dim={self.cfg.takens_dim}, tau=auto, subsample={self.cfg.takens_subsample})",
@@ -1230,16 +1282,6 @@ class StudyRunner:
             "band_results": stats_out,
             "detailed_rows": rows,
         }
-        if self.results_dir:
-            self.results_dir.mkdir(parents=True, exist_ok=True)
-            slim = {k: v for k, v in out.items() if k != "detailed_rows"}
-            (self.results_dir / "eeg_audio_tda_comparison.json").write_text(
-                json.dumps(slim, indent=2, default=str))
-            self._write_detailed_csv(rows)
-            figures = _figures_module()
-            if figures:
-                figures.comparison_figures(rows, stats_out, self.results_dir)
-        return out
 
     def _write_detailed_csv(self, rows):
         """eeg_audio_tda_detailed.csv with the reference's exact column set;
@@ -1268,33 +1310,34 @@ class StudyRunner:
         compacted out.  On the fused path the comparison's per-recording
         values are reused where they provably coincide with those semantics,
         and the deviants are redone exactly (`_control_rows_exact`); on the
-        staged path every recording goes through `_control_rows_exact`."""
-        by_subj = defaultdict(lambda: defaultdict(list))
-        for i in range(len(self.ds)):
-            fn, subj, cond = self.ds.index[i]
-            by_subj[subj][cond].append(i)
-        for conds in by_subj.values():
-            for lst in conds.values():
-                lst.sort(key=lambda i: self.ds.index[i][0])
-        common = sorted(s for s in by_subj
-                        if by_subj[s]["slow"] and by_subj[s]["fast"])
-        mis_idx = {}
-        for s in common:
-            mis_idx[(s, "slow")] = by_subj[s]["fast"][0]
-            mis_idx[(s, "fast")] = by_subj[s]["slow"][0]
-        all_idx = [i for s in common for c in ("slow", "fast")
-                   for i in by_subj[s][c]]
-        t0 = time.time()
-        if self._fused:
-            rows = self._control_rows_fused(all_idx, mis_idx)
-        else:
-            with span("control_mismatch_cache", self.device):
-                mis_cache = self._mismatch_own_cache(sorted(set(mis_idx.values())))
-            with span("control_exact_rows", self.device):
-                rows = self._control_rows_exact(all_idx, mis_idx, mis_cache)
-        tlog.LOGGER.stage("control_rows", time.time() - t0, items=len(rows))
-        with span("control_stats", self.device):
-            return self._control_stats(rows)
+        staged path every recording goes through `_control_rows_exact`.  The
+        span `control` holds the stage, the `control_*` spans its parts."""
+        with logged_span("control", self.device) as log:
+            by_subj = defaultdict(lambda: defaultdict(list))
+            for i in range(len(self.ds)):
+                fn, subj, cond = self.ds.index[i]
+                by_subj[subj][cond].append(i)
+            for conds in by_subj.values():
+                for lst in conds.values():
+                    lst.sort(key=lambda i: self.ds.index[i][0])
+            common = sorted(s for s in by_subj
+                            if by_subj[s]["slow"] and by_subj[s]["fast"])
+            mis_idx = {}
+            for s in common:
+                mis_idx[(s, "slow")] = by_subj[s]["fast"][0]
+                mis_idx[(s, "fast")] = by_subj[s]["slow"][0]
+            all_idx = [i for s in common for c in ("slow", "fast")
+                       for i in by_subj[s][c]]
+            if self._fused:
+                rows = self._control_rows_fused(all_idx, mis_idx)
+            else:
+                with span("control_mismatch_cache", self.device):
+                    mis_cache = self._mismatch_own_cache(sorted(set(mis_idx.values())))
+                with span("control_exact_rows", self.device):
+                    rows = self._control_rows_exact(all_idx, mis_idx, mis_cache)
+            log.update(items=len(rows))
+            with span("control_stats", self.device):
+                return self._control_stats(rows)
 
     def _control_rows_fused(self, all_idx, mis_idx):
         """Control rows from the fused comparison pass + exact redo of
@@ -1413,9 +1456,10 @@ class StudyRunner:
             if by_cond:
                 results.setdefault(band, {})["by_condition"] = by_cond
         if self.results_dir:
-            self.results_dir.mkdir(parents=True, exist_ok=True)
-            (self.results_dir / "matched_vs_mismatched.json").write_text(
-                json.dumps(results, indent=2, default=str))
+            with span("results_write", self.device):
+                self.results_dir.mkdir(parents=True, exist_ok=True)
+                (self.results_dir / "matched_vs_mismatched.json").write_text(
+                    json.dumps(results, indent=2, default=str))
         return results
 
     # ---------------- figures: sample diagrams + filter response ----------------
@@ -1456,8 +1500,7 @@ class StudyRunner:
         Random Forest stage (`classify.run_classification`) →
         results_summary.json, feature_importance_ranked.csv, the features'
         metadata.csv / metadata.json and the classification figures."""
-        with GLOBAL_TIMES.stage("features", items=len(self.ds)):
-            X, y, subjects, filenames, meta = self.compute_feature_dataset()
+        X, y, subjects, filenames, meta = self.compute_feature_dataset()
         res = classify.run_classification(
             X, y, subjects, classify.feature_names_220(), self.cfg,
             n_permutations=n_permutations, n_bootstrap=n_bootstrap,

@@ -5,9 +5,18 @@ CUDA request without a card raises; nothing falls back to the CPU silently.
 TF32 is off for matmuls and cuDNN convolutions so float32 products keep
 full float32 precision (the reference computes them in float32).
 
-`span(name, device)` marks a named part of an entry point: a
-`torch.profiler` range always, and, inside `timed_spans()`, the part's wall
-milliseconds between two device synchronisations (the only cost when on).
+Tracing, the port's one facility.  `span(name, device)` marks a named part
+of the program: a `torch.profiler` range always, and, inside a
+`timed_spans()` block, the part's wall milliseconds between two device
+synchronisations, its calls, its parent (the innermost enclosing span of
+its first call) and its self milliseconds (its own less what its direct
+children cover).  `logged_span` is a span whose seconds also go to the
+structured log as a `stage` event; it synchronises while the logger is on.
+`count(name, value)` adds to a counter of the block; a device tensor
+accumulates on its device and is read to the host once, when the block
+closes.  Outside a block a span costs its profiler range and no
+synchronisation, and a count one check of a module global.
+`last_record()` returns the whole record of the last block that closed.
 
 Multi-process runs: `init_distributed` joins a `torch.distributed` group
 (one process per card, or several processes on the CPU), `process_shard`
@@ -19,9 +28,12 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from collections import defaultdict
 
 import torch
 import torch.distributed as dist
+
+from .utils import logging as tlog
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -39,33 +51,128 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-_span_ms = None         # {name: wall ms} while timed_spans() is active
+class _Record:
+    """What one `timed_spans()` block collects."""
+
+    def __init__(self):
+        self.ms = {}                    # {name: wall ms}, the block's yield
+        self.calls = defaultdict(int)
+        self.self_ms = defaultdict(float)
+        self.parent = {}                # name → the parent of its first call
+        self.open = []                  # [name, ms of direct children] a span
+        self.counters = defaultdict(dict)   # name → {device or None: sum}
+
+    def close(self) -> dict:
+        counters = {}
+        for name, parts in self.counters.items():
+            counters[name] = sum(v.item() if isinstance(v, torch.Tensor) else v
+                                 for v in parts.values())
+        return dict(spans={n: dict(ms=ms, calls=self.calls[n], self_ms=self.self_ms[n],
+                                   parent=self.parent[n]) for n, ms in self.ms.items()},
+                    counters=counters)
+
+
+class _Timing:
+    """A span's handle: its wall ms once it closed timed, else None."""
+    __slots__ = ("ms",)
+
+    def __init__(self):
+        self.ms = None
+
+    @property
+    def seconds(self):
+        return None if self.ms is None else self.ms / 1e3
+
+
+_UNTIMED = _Timing()    # shared by every untimed span; never written
+_record = None          # the active timed_spans() block's _Record
+_last = None            # the record of the last block that closed
 
 
 @contextlib.contextmanager
 def timed_spans():
-    """Collect the wall milliseconds of every `span` run inside the block;
-    yields the dict it fills (a name seen twice adds up)."""
-    global _span_ms
-    _span_ms = {}
+    """Collect every `span` and `count` run inside the block; yields the
+    {name: wall ms} dict it fills (a name seen twice adds up).  The whole
+    record is `last_record()` once the block has closed."""
+    global _record, _last
+    if _record is not None:
+        raise RuntimeError("timed_spans blocks do not nest")
+    _record = rec = _Record()
     try:
-        yield _span_ms
+        yield rec.ms
     finally:
-        _span_ms = None
+        _record = None
+        _last = rec.close()
+
+
+def last_record():
+    """The last closed block's record, or None: {"spans": {name: {"ms",
+    "calls", "self_ms", "parent"}}, "counters": {name: value}}."""
+    return _last
+
+
+def counting() -> bool:
+    """Whether a `timed_spans()` block is active (so that a caller computes
+    a counter's value only when it is recorded)."""
+    return _record is not None
+
+
+def count(name: str, value) -> None:
+    """Add `value` (a number, or a tensor that stays on its device until the
+    block closes) to the counter `name`; nothing outside a block."""
+    if _record is None:
+        return
+    parts = _record.counters[name]
+    key = value.device if isinstance(value, torch.Tensor) else None
+    parts[key] = parts[key] + value if key in parts else value
 
 
 @contextlib.contextmanager
-def span(name: str, device: torch.device):
+def _span(name: str, device: torch.device, timed: bool):
     with torch.profiler.record_function(name):
-        if _span_ms is None:
-            yield
+        if not timed:
+            yield _UNTIMED
             return
-        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda d: None)
-        sync(device)
+        rec, t = _record, _Timing()
+        cuda = device.type == "cuda"
+        if rec is not None:
+            rec.parent.setdefault(name, rec.open[-1][0] if rec.open else None)
+            frame = [name, 0.0]
+            rec.open.append(frame)
+        if cuda:
+            torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        yield
-        sync(device)
-        _span_ms[name] = _span_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        try:
+            yield t
+        finally:
+            if rec is not None:
+                rec.open.pop()
+        if cuda:
+            torch.cuda.synchronize(device)
+        t.ms = (time.perf_counter() - t0) * 1e3
+        if rec is not None:
+            rec.ms[name] = rec.ms.get(name, 0.0) + t.ms
+            rec.calls[name] += 1
+            rec.self_ms[name] += t.ms - frame[1]
+            if rec.open:
+                rec.open[-1][1] += t.ms
+
+
+def span(name: str, device: torch.device):
+    """A named part of the program; yields its handle (`.ms` once it closed
+    inside a block, else None)."""
+    return _span(name, device, _record is not None)
+
+
+@contextlib.contextmanager
+def logged_span(name: str, device: torch.device, **fields):
+    """A span whose seconds go to the structured log as a `stage` event
+    named after it, with `fields`; yields that dict, for what the part
+    learns on its way (item counts).  It synchronises while the logger is
+    on, as inside a block."""
+    with _span(name, device, _record is not None or tlog.LOGGER.enabled) as t:
+        yield fields
+    tlog.LOGGER.stage(name, t.seconds, **fields)
 
 
 def process_rank_world(group=None) -> tuple[int, int]:

@@ -25,8 +25,13 @@ class StructuredLogger:
         return StructuredLogger(self._stream, self._path,
                                 **{**self._ctx, **context})
 
+    @property
+    def enabled(self) -> bool:
+        """Whether events go anywhere."""
+        return self._stream is not None or bool(self._path)
+
     def event(self, event: str, **fields) -> None:
-        if self._stream is None and not self._path:
+        if not self.enabled:
             return
         rec = {"ts": round(time.time(), 3), "event": event,
                **self._ctx, **fields}
@@ -37,7 +42,11 @@ class StructuredLogger:
             with open(self._path, "a") as f:
                 f.write(line + "\n")
 
-    def stage(self, name: str, seconds: float, items: int = 0, **fields):
+    def stage(self, name: str, seconds: float | None, items: int = 0, **fields):
+        """A `stage` event; `seconds` may be None only while the logger is
+        off (an untimed span's)."""
+        if not self.enabled:
+            return
         if items:
             fields["items"] = items
             fields["items_per_sec"] = round(items / max(seconds, 1e-9), 1)
