@@ -138,6 +138,11 @@ Phases, each fatal on failure:
      (shards of 8) they are held to phase 6's under phase 12's gates; in
      both runs every shard must launch the H1 reduction, H1 phase 1, the
      tiered Sinkhorn and the exact H0 DP (counted per shard, printed);
+ 15. the md5 window sample kernel on the full study's 7,200 lanes (1,440
+     recordings, K = 39 and the bank's 15 paired columns) in one launch and
+     in launches of 64 recordings, bit for bit against NumPy's draw; its
+     device ms, a launch's host us and NumPy's host ms (every runner phase
+     above also counts its launches: one a features batch);
 then print the `kernels` JSON line, the card line, and the result line.
 Imports nothing of JAX or of the reference package, nor scikit-learn or
 matplotlib.
@@ -1210,6 +1215,85 @@ def h0_check(sets):
     return res
 
 
+def study_sample_tables():
+    """The features stage's sample tables of the full synthetic study (45
+    subjects × 16 slow + 16 fast, `build_synthetic_device`'s index and
+    durations): stems in the stage's order, nw from the EEG length, n_pair =
+    min(audio windows, nw), as the runner builds them."""
+    import numpy as np
+
+    from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from tda_eeg_audio_tpu_torch.io.synthetic import synth_dataset_index
+    from tda_eeg_audio_tpu_torch.ops.signal import resample_n_out
+    from tda_eeg_audio_tpu_torch.ops.window_sample import SampleTables
+
+    index = synth_dataset_index()
+    order = [i for cond in ("slow", "fast") for i in sorted(
+        (i for i in range(len(index)) if index[i][2] == cond), key=lambda i: index[i][0])]
+    nw, n_aw = [], []
+    for i in order:
+        fn, subj, cond = index[i]
+        r = np.random.default_rng((int(subj[2:]) * 1000003 + int(fn[7:9]) * 101
+                                   + (0 if cond == "slow" else 1)) & 0x7FFFFFFF)
+        dur = np.float32(r.uniform(17.0, 23.0) if cond == "slow" else r.uniform(10.6, 15.5))
+        n_e = min(int(np.round(dur * np.float32(cfg.fs_eeg))), 5800)
+        n_rs = int(resample_n_out(int(dur * np.float32(cfg.fs_audio)), cfg.fs_eeg,
+                                  cfg.fs_audio))
+        nw.append((n_e - cfg.win_samples) // cfg.step_samples + 1)
+        n_aw.append(max((n_rs - cfg.win_samples) // cfg.step_samples + 1, 0))
+    nw = np.array(nw)
+    return SampleTables([index[i][0].replace(".mat", "") for i in order], nw,
+                        np.minimum(n_aw, nw), cfg.window_sampling, cfg.window_sample_seed)
+
+
+def window_sample_check(dev, batch: int = 64, reps: int = 20):
+    """Phase 15: the md5 window sample kernel through its router on the
+    study's 7,200 lanes (1,440 recordings, K = min nw, the bank's K_CMP
+    paired columns), in one launch and in the runner's launches of `batch`
+    recordings, bit for bit against NumPy's draw (`window_sample_plain`);
+    its device ms (CUDA events over `reps` launches), the launch's host µs
+    (the call's enqueue, no synchronisation; median of `reps`) and NumPy's
+    host ms for the same lanes.  The launches made here are not counted."""
+    import numpy as np
+    import torch
+
+    from tda_eeg_audio_tpu_torch.ops import window_sample_cuda as WSC
+    from tda_eeg_audio_tpu_torch.ops.window_sample import window_sample, window_sample_plain
+
+    launches0 = WSC.window_sample_cuda.launches
+    layout = WSC.layout_report()
+    tab = study_sample_tables()
+    N = len(tab.stems)
+    K = int(tab.nw.min())
+    Kx = K + K_CMP
+    t0 = time.perf_counter()
+    ref_idx, ref_mask = window_sample_plain(tab, 0, N, K, Kx)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    tab.on(dev)
+    idx, mask = window_sample(tab, 0, N, K, Kx, dev)
+    whole = bool(np.array_equal(idx.cpu().numpy(), ref_idx)
+                 and np.array_equal(mask.cpu().numpy(), ref_mask))
+    parts = [window_sample(tab, b0, min(batch, N - b0), K, Kx, dev)
+             for b0 in range(0, N, batch)]
+    batched = bool(np.array_equal(torch.cat([p[0] for p in parts]).cpu().numpy(), ref_idx)
+                   and np.array_equal(torch.cat([p[1] for p in parts]).cpu().numpy(),
+                                      ref_mask))
+    torch.cuda.synchronize()
+    host_us = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        window_sample(tab, 0, batch, K, Kx, dev)
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    res = dict(lanes=5 * N, K=K, Kx=Kx, nw=(int(tab.nw.min()), int(tab.nw.max())),
+               bit_for_bit=whole, bit_for_bit_batched=batched, numpy_ms=numpy_ms,
+               ms=cuda_ms(lambda: window_sample(tab, 0, N, K, Kx, dev), reps=reps),
+               ms_batch=cuda_ms(lambda: window_sample(tab, 0, batch, K, Kx, dev), reps=reps),
+               host_us_batch=float(np.median(host_us)), batch=batch, layout=layout)
+    WSC.window_sample_cuda.launches = launches0
+    return res
+
+
 def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                  feature_na_max=NA_FEAT, comparison_spans=False,
                  control_spans=False, mesh=None):
@@ -1232,6 +1316,7 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
     from tda_eeg_audio_tpu_torch.ops.sinkhorn_log_cuda import sinkhorn_log_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_h0_cuda import wasserstein_h0_cuda
+    from tda_eeg_audio_tpu_torch.ops.window_sample_cuda import window_sample_cuda
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     n_rec = len(store)
@@ -1239,7 +1324,8 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                     sosfiltfilt_launches=sosfiltfilt_bank_cuda,
                     sinkhorn_launches=sinkhorn_tiered_cuda,
                     sinkhorn_log_launches=sinkhorn_log_cuda,
-                    h0_launches=wasserstein_h0_cuda)
+                    h0_launches=wasserstein_h0_cuda,
+                    window_sample_launches=window_sample_cuda)
     counts = {k: {} for k in wrappers}
     secs = {}
     with tempfile.TemporaryDirectory() as td:
@@ -1329,6 +1415,10 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
         problems.append(f"wasserstein_h0 launches by stage {counts['h0_launches']}")
     if counts["sinkhorn_log_launches"]["control"] < 1:
         problems.append(f"sinkhorn_log launches by stage {counts['sinkhorn_log_launches']}")
+    # the md5 window sample: one launch a features batch (a shard's each)
+    if counts["window_sample_launches"]["features"] < -(-n_rec // eeg_batch):
+        problems.append(f"window_sample launches by stage "
+                        f"{counts['window_sample_launches']}")
     if shard_launches is not None and not all(
             all(c[k] > 0 for k in SHARD_KERNELS) for c in shard_launches):
         problems.append(f"launches by shard {shard_launches}")
@@ -1348,7 +1438,10 @@ def runner_phase(store, cfg, eeg_batch=B_REC, eeg_bank=True,
                   sinkhorn_log_launches=counts["sinkhorn_log_launches"],
                   sinkhorn_log_launches_total=totals["sinkhorn_log_launches"],
                   h0_launches=counts["h0_launches"],
-                  h0_launches_total=totals["h0_launches"], K=meta["K"],
+                  h0_launches_total=totals["h0_launches"],
+                  window_sample_launches=counts["window_sample_launches"],
+                  window_sample_launches_total=totals["window_sample_launches"],
+                  K=meta["K"],
                   bank_served=runner._bank_served,
                   bank_fallback=runner._bank_fallback,
                   control_deviants_redone=runner.redo_counts["control_deviants"],
@@ -1642,6 +1735,7 @@ def cli_phase():
     from tda_eeg_audio_tpu_torch.ops.sinkhorn_log_cuda import sinkhorn_log_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_cuda import sinkhorn_tiered_cuda
     from tda_eeg_audio_tpu_torch.ops.wasserstein_h0_cuda import wasserstein_h0_cuda
+    from tda_eeg_audio_tpu_torch.ops.window_sample_cuda import window_sample_cuda
 
     report, problems = {}, []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1664,6 +1758,7 @@ def cli_phase():
             sinkhorn_tiered_cuda.launches = 0
             sinkhorn_log_cuda.launches = 0
             wasserstein_h0_cuda.launches = 0
+            window_sample_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -1677,6 +1772,7 @@ def cli_phase():
                                 sinkhorn_launches=sinkhorn_tiered_cuda.launches,
                                 sinkhorn_log_launches=sinkhorn_log_cuda.launches,
                                 h0_launches=wasserstein_h0_cuda.launches,
+                                window_sample_launches=window_sample_cuda.launches,
                                 windows_redone=run_tda.redone - redone0,
                                 said=lines[-1] if lines else "")
             if rc != 0:
@@ -2077,6 +2173,7 @@ def main() -> int:
     from tda_eeg_audio_tpu_torch.ops import sinkhorn_log_cuda as SL
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
     from tda_eeg_audio_tpu_torch.ops import wasserstein_h0_cuda as WH
+    from tda_eeg_audio_tpu_torch.ops import window_sample_cuda as WS
     from tda_eeg_audio_tpu_torch.runtime import timed_spans
 
     t_start = time.perf_counter()
@@ -2091,7 +2188,8 @@ def main() -> int:
     _, nvcc_s = cuda_build.build_libraries(
         [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()),
          (P1.SRC, P1.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ()),
-         (WC.SRC, WC.PROFILE_FLAGS), (SL.SRC, ()), (WH.SRC, ())], verbose=True)
+         (WC.SRC, WC.PROFILE_FLAGS), (SL.SRC, ()), (WH.SRC, ()), (WS.SRC, ())],
+        verbose=True)
     HC._load()
     P1._load()
     P1._load(profile=True)
@@ -2100,6 +2198,7 @@ def main() -> int:
     WC._load(profile=True)
     SL._load()
     WH._load()
+    WS._load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{nvcc_s if nvcc_s is not None else 'cached'})", flush=True)
 
@@ -2555,6 +2654,18 @@ def main() -> int:
         return 1
     del store
 
+    # ── phase 15: the md5 window sample on the study's 7,200 lanes ──
+    ws = window_sample_check(dev)
+    print(f"window_sample vs NumPy ({ws['lanes']} lanes, nw {ws['nw'][0]}-{ws['nw'][1]}, "
+          f"K {ws['K']}, Kx {ws['Kx']}): bit for bit in one launch {ws['bit_for_bit']}, "
+          f"in launches of {ws['batch']} {ws['bit_for_bit_batched']}; kernel "
+          f"{ws['ms']:.4f} ms for all lanes, {ws['ms_batch']:.4f} ms a batch of "
+          f"{ws['batch']}, launch {ws['host_us_batch']:.1f} us on the host; NumPy "
+          f"{ws['numpy_ms']:.1f} ms; layout {json.dumps(ws['layout'])}", flush=True)
+    if not (ws["bit_for_bit"] and ws["bit_for_bit_batched"]):
+        print("FAIL: phase 15 window_sample vs NumPy", file=sys.stderr)
+        return 1
+
     # one kernel at the main path's two shapes: the line sums both checks
     r47, r124 = checks["n47"], checks["n124"]
     t_bytes = r47["t_bytes"] + r124["t_bytes"]
@@ -2741,7 +2852,28 @@ def main() -> int:
                         bound_ms=max(h0[k]["t_bytes"], h0[k]["t_ops"]),
                         bit_for_bit_vs_cpu=h0[k]["bit_for_bit_vs_cpu"])
                 for k in H0_SETS},
-        layout=h0["layout"], held_against_plain=True)]
+        layout=h0["layout"], held_against_plain=True),
+        dict(
+        name="window_sample", route="cuda",
+        source="tda_eeg_audio_tpu_torch/csrc/window_sample.cu",
+        replaces="tda_eeg_audio_tpu/models/classify.py:48 window_sample_indices "
+                 "(host NumPy, not Pallas)",
+        launches=report["window_sample_launches_total"]
+        + sum(r["window_sample_launches"] for r in cli_report.values())
+        + iir_report["window_sample_launches_total"]
+        + sum(r["window_sample_launches_total"] for r in (knob_reports or {}).values())
+        + sum(r["window_sample_launches_total"] for r in mesh_reports.values()),
+        launches_by_path=dict(
+            runner=report["window_sample_launches"],
+            cli={k: r["window_sample_launches"] for k, r in cli_report.items()},
+            runner_iir_scan=iir_report["window_sample_launches"],
+            runner_knobs={k: r["window_sample_launches"] for k, r in
+                          (knob_reports or {}).items()},
+            runner_mesh={k: r["window_sample_launches"] for k, r in mesh_reports.items()}),
+        ms=ws["ms"], ms_batch=ws["ms_batch"], host_us_batch=ws["host_us_batch"],
+        plain_ms=ws["numpy_ms"], bound_ms=None,
+        bound_by="latency: ~80 dependent PCG64 steps a lane", library_ms=None,
+        lanes=ws["lanes"], layout=ws["layout"], held_against_plain=True)]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -49,11 +49,12 @@ import torch
 from .. import tuning
 from ..config import (PipelineConfig, DEFAULT_CONFIG, BAND_NAMES, FREQ_BANDS,
                       GOOD_ELECTRODES)
-from ..io.synthetic import window_sample_indices
 from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std
 from ..ops.signal import resample_n_out
 from ..ops.wasserstein import sinkhorn_cost_pairs, wasserstein_h0_exact
+from ..ops.window_sample import SampleTables, window_sample
+from ..ops.window_sample import paired_window_idx as _paired_window_idx  # noqa: F401
 from ..runtime import logged_span, process_rank_world, resolve_device, span
 from ..utils import logging as tlog
 from ..utils.validation import issues_from_diagnostics, matrix_diagnostics
@@ -101,17 +102,6 @@ def _ref_linspace_idx(n_win: int, k: int) -> np.ndarray:
     if n_win > k:
         return np.linspace(0, n_win - 1, k).astype(np.int64)
     return np.arange(max(n_win, 0), dtype=np.int64)
-
-
-def _paired_window_idx(n_pair: int, k: int) -> np.ndarray:
-    """Host replication of `audio_takens_program`'s paired window selection
-    over n_pair = min(n_win_eeg, n_win_audio) windows: the same float32
-    arithmetic in the same order, so these indices address exactly the
-    windows the device pairs."""
-    if n_pair <= k:
-        return np.minimum(np.arange(k), max(n_pair - 1, 0))
-    return (np.arange(k, dtype=np.float32) * np.float32(n_pair - 1)
-            / np.float32(k - 1)).astype(np.int64)
 
 
 class StudyRunner:
@@ -393,25 +383,17 @@ class StudyRunner:
 
     # ---------------- stage: classification features ----------------
 
-    def _feature_window_sample(self, idxs, counts, K, Kx):
-        """(B, 5, Kx) md5-seeded window sample + mask; columns K..Kx (bank
-        mode) hold each recording's paired comparison windows, mask False."""
-        cfg = self.cfg
-        B = len(idxs)
-        use_idx = np.zeros((B, N_BANDS, Kx), np.int64)
-        use_mask = np.zeros((B, N_BANDS, Kx), bool)
-        for b, i in enumerate(idxs):
-            stem = self.ds.index[i][0].replace(".mat", "")
-            nw = counts[i]
-            for bd, band in enumerate(BAND_NAMES):
-                sel = window_sample_indices(stem, band, nw, min(K, nw),
-                                            cfg.window_sampling,
-                                            cfg.window_sample_seed)
-                use_idx[b, bd, :len(sel)] = sel
-                use_mask[b, bd, :len(sel)] = True
-            if Kx > K:
-                use_idx[b, :, K:] = self._paired_comp_indices(i, nw)
-        return use_idx, use_mask
+    def _sample_tables(self, all_idx, counts) -> SampleTables:
+        """The md5 window sample's inputs for the stage's recordings, in
+        its order: stems, window counts and (bank mode) the paired counts
+        min(audio windows, nw) of the comparison's selection, which the
+        bank's extra columns hold.  Lives for one features stage."""
+        nw = np.array([counts[i] for i in all_idx], np.int64)
+        n_pair = (np.minimum(self._audio_window_counts(all_idx), nw)
+                  if self.use_eeg_bank else None)
+        return SampleTables([self.ds.index[i][0].replace(".mat", "") for i in all_idx],
+                            nw, n_pair, self.cfg.window_sampling,
+                            self.cfg.window_sample_seed)
 
     def compute_feature_dataset(self, max_windows_per_band=None,
                                 batch_start: int | None = None,
@@ -431,11 +413,13 @@ class StudyRunner:
             with span("features_index", self.device):
                 all_idx, counts, K, min_windows, skipped_zero = self._feature_index(
                     max_windows_per_band, batch_start, batch_end)
+                tables = self._sample_tables(all_idx, counts)
             with span("features_dispatch", self.device):
-                pending, bank_batches, bank_slot = self._feature_dispatch(all_idx, counts, K)
+                pending, bank_batches, bank_slot = self._feature_dispatch(
+                    all_idx, K, tables)
             with span("features_rows", self.device):
                 X_rows, y, subjects, filenames, file_metadata = self._feature_rows(
-                    pending, counts, K, bank_slot)
+                    pending, counts, K, bank_slot, tables)
             if self.use_eeg_bank and bank_batches:
                 self._eeg_bank = dict(batches=bank_batches, slot=bank_slot,
                                       K=K + K_CMP, K_base=K, flat=None)
@@ -479,11 +463,13 @@ class StudyRunner:
             all_idx = all_idx[batch_start or 0:batch_end]
         return all_idx, counts, K, min_windows, skipped_zero
 
-    def _feature_dispatch(self, all_idx, counts, K):
+    def _feature_dispatch(self, all_idx, K, tables):
         """The batch loop: each batch's programs issued, nothing read back.
         Returns pending [(packed outputs, recordings)], the bank's batches
-        and {recording: bank row}.  Spans: `features_window_sample` and
-        (inside the program) `eeg_feature_program`, each once a batch."""
+        and {recording: bank row}.  Spans: `features_window_sample` (the md5
+        sample of the batch, or of each shard, on its device: one kernel
+        launch on a card) and (inside the program) `eeg_feature_program`,
+        each once a batch."""
         cfg = self.cfg
         t0 = time.time()
         with_bank = self.use_eeg_bank
@@ -496,14 +482,16 @@ class StudyRunner:
             idxs = all_idx[b0:b0 + self.eeg_batch]
             if not self.on_device:
                 with span("features_window_sample", self.device):
-                    use_idx, use_mask = self._feature_window_sample(idxs, counts, K, Kx)
+                    use_idx, use_mask = window_sample(tables, b0, len(idxs), K, Kx,
+                                                      self.device)
                 pending.append((self._staged_features(idxs, use_idx, use_mask),
                                 idxs))
                 continue
             eeg, _, ns_e, _, _ = self._load_batch(idxs)
             for dev, part, sl in self._shards(idxs):
                 with span("features_window_sample", self.device):
-                    use_idx, use_mask = self._feature_window_sample(part, counts, K, Kx)
+                    use_idx, use_mask = window_sample(tables, b0 + sl.start, len(part),
+                                                      K, Kx, dev)
                 outs = programs.eeg_feature_program(
                     eeg[sl].to(dev, non_blocking=True), ns_e[sl], use_idx,
                     use_mask, cfg, self.n_win_max, Kx, na_max=self.feature_na_max,
@@ -524,11 +512,12 @@ class StudyRunner:
                       f"dispatched ({time.time() - t0:.0f}s)")
         return pending, bank_batches, bank_slot
 
-    def _feature_rows(self, pending, counts, K, bank_slot):
+    def _feature_rows(self, pending, counts, K, bank_slot, tables):
         """The stage's one read-back, the exact redo of recordings whose used
         windows overflowed (span `features_overflow_redo`), and the rows:
         (X rows, y, subjects, filenames, file metadata).  Drops from
-        `bank_slot` the recordings the bank cannot serve."""
+        `bank_slot` the recordings the bank cannot serve.  `pending` is in
+        the stage's order, so a recording's row of `tables` is its offset."""
         cfg = self.cfg
         with_bank = self.use_eeg_bank
         if self.on_device:      # the stage's one read-back
@@ -545,6 +534,7 @@ class StudyRunner:
         else:   # the staged path's batches are on the host already
             done = [(*out, None, idxs) for out, idxs in pending]
         with span("features_overflow_redo", self.device):
+            row0 = 0
             for agg, _, ovf, _, idxs in done:
                 for b, i in enumerate(idxs):
                     if ovf[b] and i not in self._failed_idx:
@@ -553,8 +543,9 @@ class StudyRunner:
                                   f"{self.ds.index[i][0]}")
                         tlog.LOGGER.event("feature_overflow_redo",
                                           file=self.ds.index[i][0])
-                        agg[b] = self._staged_feature_agg([i], counts, K)[0]
+                        agg[b] = self._staged_feature_agg([i], tables, row0 + b, K)[0]
                         self.redo_counts["features"] += 1
+                row0 += len(idxs)
         X_rows, y, subjects, filenames, file_metadata = [], [], [], [], []
         for agg, diag, _, bank_ovf, idxs in done:
             for b, i in enumerate(idxs):
@@ -606,12 +597,13 @@ class StudyRunner:
                 matrix_diagnostics(dist[:, :, 0].cpu().numpy()),
                 np.zeros(B, bool))
 
-    def _staged_feature_agg(self, idxs, counts, K):
+    def _staged_feature_agg(self, idxs, tables, row0, K):
         """(len(idxs), 5, 2, 11, 2) feature aggregate through `run_tda`,
         which redoes overflowed windows on the host engine — for recordings
-        whose features-stage reduction overflowed."""
+        whose features-stage reduction overflowed; idxs are the rows
+        [row0, row0 + len(idxs)) of the stage's sample tables."""
         B = len(idxs)
-        use_idx, use_mask = self._feature_window_sample(idxs, counts, K, K)
+        use_idx, use_mask = window_sample(tables, row0, B, K, K, self.device)
         eeg, _, ns_e, _, _ = self._load_batch(idxs)
         dist, _ = programs.eeg_window_distances(
             eeg, self._dev(ns_e), self._dev(use_idx), self.cfg, self.n_win_max)
@@ -900,14 +892,15 @@ class StudyRunner:
                                   self.cfg.fs_audio))
         return max((n_rs - win) // step + 1, 0)
 
-    def _paired_comp_indices(self, i: int, nw: int) -> np.ndarray:
-        """(N_BANDS, K_CMP) paired window indices of recording i — the
-        comparison stage's selection, replicated on the host at features
-        time so the bank's union columns hold exactly the diagrams
-        `comparison_from_bank` will gather (the selection is the same for
-        every band)."""
-        comp = _paired_window_idx(min(self._audio_window_count(i), nw), K_CMP)
-        return np.broadcast_to(comp, (N_BANDS, K_CMP))
+    def _audio_window_counts(self, idxs) -> np.ndarray:
+        """`_audio_window_count` of recordings idxs: from the store's
+        lengths at once, a host dataset's recording by recording."""
+        if self.store is None:
+            return np.array([self._audio_window_count(i) for i in idxs], np.int64)
+        win, step = self.cfg.win_samples, self.cfg.step_samples
+        n_a = np.minimum(self.store.ns_a[np.asarray(idxs, np.int64)], self.t_audio_pad)
+        n_rs = resample_n_out(n_a, self.cfg.fs_eeg, self.cfg.fs_audio)
+        return np.maximum((n_rs - win) // step + 1, 0)
 
     def _bank_gather_idx(self, idxs, metas):
         """Flat bank indices serving a comparison batch, or None when a live
