@@ -53,10 +53,16 @@ class DeviceStore:
     def batch(self, idxs, pad_to: int | None = None):
         """Device-sliced batch (eeg, audio, ns_e, ns_a, metas); rows beyond
         len(idxs) are zeroed padding recordings of 250 EEG / 44100 audio
-        samples (one empty second, masked downstream)."""
+        samples (one empty second, masked downstream).  A contiguous run of
+        recordings is taken by a slice; other indices are uploaded, a copy
+        the host waits for."""
         B = len(idxs)
         P = max(pad_to or B, B)
-        take = torch.as_tensor(np.asarray(idxs, np.int64), device=self.device)
+        ii = np.asarray(idxs, np.int64)
+        if B and (np.diff(ii) == 1).all():
+            take = slice(int(ii[0]), int(ii[0]) + B)
+        else:
+            take = torch.as_tensor(ii, device=self.device)
         eeg = self.eeg.new_zeros((P,) + tuple(self.eeg.shape[1:]))
         audio = self.audio.new_zeros((P, self.audio.shape[1]))
         eeg[:B] = self.eeg[take]

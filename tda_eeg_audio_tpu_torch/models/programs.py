@@ -31,7 +31,7 @@ from ..ops.homology_cuda import h1_diagrams_cuda
 from ..ops.wasserstein import (ITERS, STEPS, W_TIERS, build_cost_matrix,
                                sinkhorn_cost_stab, wasserstein_h0_exact)
 from ..ops.wasserstein_cuda import sinkhorn_tiered_cuda
-from ..runtime import count, counting, resolve_device, span
+from ..runtime import count, counting, device_constant, resolve_device, span
 
 N_BANDS = len(FREQ_BANDS)
 
@@ -74,15 +74,19 @@ def _banded_windows(eeg, n_samples, cfg, n_win_max):
         banded = tsig.bandpass_bank_iir_scan(eeg, n_samples[:, None],
                                              cfg.fs_eeg, cfg.filter_order)
     else:
-        bank = torch.as_tensor(tsig.design_band_fir_bank(
-            cfg.fs_eeg, cfg.filter_order, cfg.fir_numtaps), device=eeg.device)
-        banded = tsig.bandpass_bank(eeg, bank)                   # (B, C, 5, T)
+        banded = tsig.bandpass_bank(eeg, _fir_bank(cfg, eeg.device))   # (B, C, 5, T)
     win, step = cfg.win_samples, cfg.step_samples
     wins = tsig.sliding_windows(banded, n_win_max, win, step)    # (B, C, 5, W, win)
     wins = wins.permute(0, 2, 3, 1, 4)                           # (B, 5, W, C, win)
     starts = torch.arange(n_win_max, device=eeg.device) * step
     wmask = (starts + win)[None, :] <= n_samples[:, None]
     return wins, wmask
+
+
+def _fir_bank(cfg: PipelineConfig, dev: torch.device) -> torch.Tensor:
+    """The five-band FIR bank on `dev`, uploaded once a device."""
+    return device_constant(tsig.design_band_fir_bank, dev, torch.float32,
+                           cfg.fs_eeg, cfg.filter_order, cfg.fir_numtaps)
 
 
 def eeg_window_program(eeg, n_samples, cfg: PipelineConfig = DEFAULT_CONFIG,
@@ -329,6 +333,11 @@ def _h1_pack(out):
     return b, torch.where(m, d, 0.0), m
 
 
+# the five H1 features the comparison correlates, among the 11: mean and
+# total persistence, entropy, max persistence, n_features
+H1_FEAT_COLS = (6, 9, 10, 8, 0)
+
+
 def _comparison_stats_program(w_h0, w_h1, w_h1_mis, e_feats, a_feats,
                               kmask, a_degen, mis_degen, n_win_e, mis_n_win,
                               K: int):
@@ -348,8 +357,7 @@ def _comparison_stats_program(w_h0, w_h1, w_h1_mis, e_feats, a_feats,
         m = m.reshape(B, N_BANDS, K)
         return torch.where(m, w, 0.0).sum(-1) / torch.clamp(m.sum(-1), min=1)
 
-    # mean/total persistence, entropy, max persistence, n_features
-    feat_idx = torch.tensor([6, 9, 10, 8, 0], device=dev)
+    feat_idx = device_constant(np.asarray, dev, torch.int64, H1_FEAT_COLS)
     ef = e_feats.reshape(B, N_BANDS, K, 2, 11)[:, :, :, 1, :]
     af = a_feats.reshape(B, N_BANDS, K, 2, 11)[:, :, :, 1, :]
     e_ts = ef[..., feat_idx].movedim(-1, 2)                       # (B, 5, 5f, K)
@@ -618,15 +626,15 @@ def audio_takens_program(audio, n_samples, cfg: PipelineConfig = DEFAULT_CONFIG,
     audio = torch.as_tensor(audio, device=dev, dtype=torch.float32)
     n_samples = torch.as_tensor(n_samples, device=dev).long()
     h, up, down = tsig.design_resample_poly_filter(cfg.fs_eeg, cfg.fs_audio)
-    a_rs, n_rs = tsig.resample_poly_device(audio, n_samples, n_out_max, h, up, down)
-    lp = torch.as_tensor(tsig.design_envelope_lowpass(cfg.fs_eeg), device=dev)
-    hb = torch.as_tensor(tsig.design_hilbert_fir(), device=dev)
+    W = device_constant(tsig.resample_poly_matrix, dev, audio.dtype,
+                        cfg.fs_eeg, cfg.fs_audio)
+    a_rs, n_rs = tsig.resample_poly_device(audio, n_samples, n_out_max, h, up, down, W)
+    lp = device_constant(tsig.design_envelope_lowpass, dev, torch.float32, cfg.fs_eeg)
+    hb = device_constant(tsig.design_hilbert_fir, dev, torch.float32)
     t_ids = torch.arange(n_out_max, device=dev)
     env = tsig.hilbert_envelope(
         a_rs, lp, hb, mask=(t_ids[None, :] < n_rs[:, None]).to(a_rs.dtype))
-    bank = torch.as_tensor(tsig.design_band_fir_bank(
-        cfg.fs_eeg, cfg.filter_order, cfg.fir_numtaps), device=dev)
-    env_b = tsig.bandpass_bank(env, bank)                          # (B, 5, T)
+    env_b = tsig.bandpass_bank(env, _fir_bank(cfg, dev))           # (B, 5, T)
     win, step = cfg.win_samples, cfg.step_samples
     wins = tsig.sliding_windows(env_b, n_win_max, win, step)       # (B, 5, W, win)
     n_win = torch.clamp((n_rs - win) // step + 1, min=0)

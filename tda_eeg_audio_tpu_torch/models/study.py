@@ -55,7 +55,8 @@ from ..ops.signal import resample_n_out
 from ..ops.wasserstein import sinkhorn_cost_pairs, wasserstein_h0_exact
 from ..ops.window_sample import SampleTables, window_sample
 from ..ops.window_sample import paired_window_idx as _paired_window_idx  # noqa: F401
-from ..runtime import logged_span, process_rank_world, resolve_device, span
+from ..runtime import (host_waits, logged_span, process_rank_world, resolve_device,
+                       span, to_device)
 from ..utils import logging as tlog
 from ..utils.validation import issues_from_diagnostics, matrix_diagnostics
 from . import classify, homology_exec, programs
@@ -902,28 +903,78 @@ class StudyRunner:
         n_rs = resample_n_out(n_a, self.cfg.fs_eeg, self.cfg.fs_audio)
         return np.maximum((n_rs - win) // step + 1, 0)
 
-    def _bank_gather_idx(self, idxs, metas):
-        """Flat bank indices serving a comparison batch, or None when a live
-        recording of the batch is missing from the bank (diagram overflow,
-        zero windows, outside a features shard): the caller then falls back
-        to `comparison_program` for the batch."""
-        bk = self._eeg_bank
-        Kx = bk["K"]
-        cols = bk["K_base"] + np.arange(K_CMP, dtype=np.int64)
-        gidx = np.zeros((len(idxs), N_BANDS, K_CMP), np.int64)
-        for b, meta in enumerate(metas):
-            if meta.get("failed"):
-                continue        # its rows are dropped; any index will do
-            row = bk["slot"].get(idxs[b])
-            if row is None:
-                return None
-            gidx[b] = (row * N_BANDS + np.arange(N_BANDS))[:, None] * Kx + cols
-        return gidx.reshape(-1)
+    def _comparison_plan(self, mis_idx, mis_slot, bank):
+        """The comparison loop's per-recording host arrays, for every
+        recording in store order (the loop's order), computed once a stage:
+        slots (N,) each one's row of the mismatch bank (its zero row without
+        a partner), has_mis (N,), mis_n_win (N,), mis_degen (N, 5, K_CMP);
+        with the features stage's bank gidx (N, 5·K_CMP), the flat bank
+        indices of each one's paired windows (0 where it has no bank row),
+        and in_bank (N,); with a store ns_e and ns_a (N,), its lengths."""
+        N, zero_slot = len(self.ds), bank["b"].shape[0] - 1
+        slots = np.full(N, zero_slot, np.int64)
+        for i in range(N):
+            fn, subj, cond = self.ds.index[i]
+            u = mis_slot.get(mis_idx.get((subj, cond)))
+            if u is not None:
+                slots[i] = u
+        has_mis = slots != zero_slot
+        mis_n_win = np.zeros(N, np.int64)
+        mis_degen = np.zeros((N, N_BANDS, K_CMP), bool)
+        mis_n_win[has_mis] = bank["n_win"][slots[has_mis]]
+        mis_degen[has_mis] = bank["degen"][slots[has_mis]]
+        plan = dict(slots=slots, has_mis=has_mis, mis_n_win=mis_n_win,
+                    mis_degen=mis_degen)
+        if self._eeg_bank is not None:
+            bk = self._eeg_bank
+            rows = np.array([bk["slot"].get(i, -1) for i in range(N)], np.int64)
+            plan["in_bank"] = rows >= 0
+            cols = bk["K_base"] + np.arange(K_CMP, dtype=np.int64)
+            gidx = ((rows[:, None] * N_BANDS + np.arange(N_BANDS))[:, :, None] * bk["K"]
+                    + cols)
+            plan["gidx"] = np.where(plan["in_bank"][:, None, None], gidx,
+                                    0).reshape(N, -1)
+        if self.store is not None:
+            plan["ns_e"], plan["ns_a"] = self.store.ns_e, self.store.ns_a
+        return plan
+
+    def _bank_serves(self, plan, idxs, metas) -> bool:
+        """Whether the features stage's bank serves a comparison batch: the
+        whole batch or none of it; a live recording without a bank row
+        (diagram overflow, zero windows, outside a features shard) sends
+        the batch to `comparison_program`."""
+        return self._eeg_bank is not None and all(
+            plan["in_bank"][i] or m.get("failed") for i, m in zip(idxs, metas))
+
+    @staticmethod
+    def _plan_on(plan, dev):
+        """The plan's arrays the programs read, on `dev` in one copy
+        (`runtime.to_device`, no host wait): a dict of device views."""
+        keys = [k for k in ("ns_e", "ns_a", "slots", "mis_n_win") if k in plan]
+        parts = [plan[k] for k in keys] + [plan["mis_degen"].reshape(-1)]
+        if "gidx" in plan:
+            parts.append(plan["gidx"].reshape(-1))
+        flat = to_device(np.concatenate([np.asarray(x, np.int64) for x in parts]),
+                         dev)
+        on, off, N = {}, 0, len(plan["slots"])
+        for k in keys:
+            on[k], off = flat[off:off + N], off + N
+        W = N_BANDS * K_CMP
+        on["mis_degen"] = flat[off:off + N * W].reshape(N, N_BANDS, K_CMP).bool()
+        if "gidx" in plan:
+            on["gidx"] = flat[off + N * W:].reshape(N, W)
+        return on
 
     def _fused_rows(self):
         """One device pass over all recordings → the comparison + control
         rows.  Wasserstein runs on the device (exact H0 DP, tiered Sinkhorn
-        for H1); the stage reads back one packed vector after its loop."""
+        for H1); the stage reads back one packed vector after its loop.
+        From `comparison_dispatch` to that read-back nothing makes the host
+        wait for the card: the per-batch arrays are uploaded once a stage
+        and device (`_comparison_plan`), the recordings are contiguous slices
+        of the store and the programs' constants stay on the card, so the
+        host enqueues ahead of the card (counter
+        `comparison_dispatch.host_waits`, 0 when it does)."""
         if self._fused_cache is not None:
             return self._fused_cache
         cfg = self.cfg
@@ -939,61 +990,53 @@ class StudyRunner:
                                       device=self.device),
                         n_win=np.zeros(0, np.int64),
                         degen=np.zeros((0, N_BANDS, K_CMP), bool))
-        zero_slot = bank["b"].shape[0] - 1
-        # the mismatch diagrams on each shard's device, so that a shard's
-        # gather (and the upload of its slots, which waits for the stream it
-        # joins) stays on its own device
-        mis_h1_on = {}
+        # the mismatch diagrams and the plan on each shard's device, so
+        # that a shard's gathers stay on its own device
+        on_dev = {}
         self._bank_served = self._bank_fallback = 0
         t0 = time.time()
         all_idx = list(range(len(self.ds)))
         batches = []        # (packed, idxs, metas, has_mis, mis_degen)
         with logged_span("comparison_dispatch", self.device,
                          items=len(all_idx) * N_BANDS * K_CMP,
-                         n_mismatch_cached=len(mis_slot)) as log:
+                         n_mismatch_cached=len(mis_slot)) as log, \
+                host_waits("comparison_dispatch.host_waits", self.device):
+            plan = self._comparison_plan(mis_idx, mis_slot, bank)
             for b0 in range(0, len(all_idx), self.eeg_batch):
                 idxs = all_idx[b0:b0 + self.eeg_batch]
                 eeg_b, audio_b, ns_e_b, ns_a_b, metas_b = self._load_batch(idxs)
-                # the bank serves the whole batch or none of it
-                gidx = (self._bank_gather_idx(idxs, metas_b)
-                        if self._eeg_bank is not None else None)
+                served = self._bank_serves(plan, idxs, metas_b)
                 if self._eeg_bank is not None:
-                    self._bank_served += gidx is not None
-                    self._bank_fallback += gidx is None
+                    self._bank_served += served
+                    self._bank_fallback += not served
                 for dev, part, sl in self._shards(idxs):
-                    B = len(part)
-                    ns_e, ns_a, metas = ns_e_b[sl], ns_a_b[sl], metas_b[sl]
-                    slots = np.full(B, zero_slot, np.int64)
-                    mis_n_win = np.zeros(B, np.int64)
-                    mis_degen = np.zeros((B, N_BANDS, K_CMP), bool)
-                    has_mis = np.zeros(B, bool)
-                    for b, i in enumerate(part):
-                        fn, subj, cond = self.ds.index[i]
-                        u = mis_slot.get(mis_idx.get((subj, cond)))
-                        if u is not None:
-                            has_mis[b] = True
-                            slots[b] = u
-                            mis_n_win[b] = bank["n_win"][u]
-                            mis_degen[b] = bank["degen"][u]
-                    if dev not in mis_h1_on:
-                        mis_h1_on[dev] = tuple(bank[k].to(dev) for k in "bdm")
-                    slots_d = torch.as_tensor(slots, device=dev)
-                    mis_args = (tuple(x[slots_d].flatten(0, 1) for x in mis_h1_on[dev]),
-                                mis_n_win, mis_degen)
+                    if dev not in on_dev:
+                        on_dev[dev] = (tuple(bank[k].to(dev) for k in "bdm"),
+                                       self._plan_on(plan, dev))
+                    mis_h1, on = on_dev[dev]
+                    rows = slice(b0 + sl.start, b0 + sl.stop)
+                    if self.store is None:      # a host dataset's lengths came with its batch
+                        ns_e, ns_a = ns_e_b[sl], ns_a_b[sl]
+                    else:
+                        ns_e, ns_a = on["ns_e"][rows], on["ns_a"][rows]
+                    slots = on["slots"][rows]
+                    mis_args = (tuple(x[slots].flatten(0, 1) for x in mis_h1),
+                                on["mis_n_win"][rows], on["mis_degen"][rows])
                     audio = audio_b[sl].to(dev, non_blocking=True)
-                    if gidx is not None:
-                        g = gidx.reshape(len(idxs), -1)[sl].reshape(-1)
+                    if served:
                         out = programs.comparison_from_bank(
-                            self._bank_flat(), g, ns_e, audio, ns_a, *mis_args, cfg,
-                            self.n_win_max, self.n_rs_max, K_CMP,
-                            t_eeg_pad=eeg_b.shape[-1], device=dev)
+                            self._bank_flat(), on["gidx"][rows].reshape(-1), ns_e,
+                            audio, ns_a, *mis_args, cfg, self.n_win_max,
+                            self.n_rs_max, K_CMP, t_eeg_pad=eeg_b.shape[-1],
+                            device=dev)
                     else:
                         out = programs.comparison_program(
                             eeg_b[sl].to(dev, non_blocking=True), ns_e, audio, ns_a,
                             *mis_args, cfg, self.n_win_max, self.n_rs_max, K_CMP,
                             device=dev)
                     batches.append((programs.pack_comparison_outputs(out), part,
-                                    metas, has_mis, mis_degen))
+                                    metas_b[sl], plan["has_mis"][rows],
+                                    plan["mis_degen"][rows]))
                 if self.verbose:
                     print(f"  fused compare: {b0 + len(idxs)}/{len(all_idx)} "
                           f"dispatched ({time.time() - t0:.0f}s)")

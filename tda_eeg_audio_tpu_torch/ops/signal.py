@@ -196,25 +196,46 @@ def hilbert_envelope(x: torch.Tensor, lp_taps: torch.Tensor, hilb_taps: torch.Te
     return fir_zero_phase(env, lp_taps)
 
 
+def _poly_blocks(L_h: int, up: int, down: int) -> np.ndarray:
+    """The block offsets e of `resample_poly_device`'s product."""
+    half = (L_h - 1) // 2
+    e_min = int(np.floor(-(half / up) / down))
+    e_max = int(np.floor(((up - 1) * down + half) / up / down))
+    return np.arange(e_min, e_max + 1)
+
+
+def _poly_matrix(h: np.ndarray, up: int, down: int) -> np.ndarray:
+    """The (up, K_e, down) block-Toeplitz taps W of `resample_poly_device`."""
+    L_h = len(h)
+    half = (L_h - 1) // 2
+    es = _poly_blocks(L_h, up, down)
+    p_i, e_i, f_i = np.meshgrid(np.arange(up), es, np.arange(down), indexing="ij")
+    t_i = p_i * down + half - up * (down * e_i + f_i)
+    return np.where((t_i >= 0) & (t_i < L_h),
+                    np.asarray(h)[np.clip(t_i, 0, L_h - 1)], 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def resample_poly_matrix(up: int = 250, down: int = 44100) -> np.ndarray:
+    """W of `design_resample_poly_filter(up, down)`'s filter, for
+    `resample_poly_device(..., W=...)`."""
+    return _poly_matrix(*design_resample_poly_filter(up, down))
+
+
 def resample_poly_device(x: torch.Tensor, n_in: torch.Tensor, n_out_max: int,
-                         h: np.ndarray, up: int, down: int):
+                         h: np.ndarray, up: int, down: int, W=None):
     """Polyphase rational resampling, scipy.resample_poly-compatible, as the
     reference's block-Toeplitz product: the input cut into blocks of `down`
     samples, every output block j is Σ_e W[:, e, :] @ x_blocks[j + e].
 
-    x: (B, T_pad) zero-padded, n_in: (B,).  Returns (y (B, n_out_max),
-    n_out (B,))."""
-    L_h = len(h)
-    half = (L_h - 1) // 2
+    x: (B, T_pad) zero-padded, n_in: (B,); W: the taps as an x.dtype tensor
+    on x's device (`resample_poly_matrix`), built here when None.  Returns
+    (y (B, n_out_max), n_out (B,))."""
     B, T_pad = x.shape
-    e_min = int(np.floor(-(half / up) / down))
-    e_max = int(np.floor(((up - 1) * down + half) / up / down))
-    es = np.arange(e_min, e_max + 1)
-    p_i, e_i, f_i = np.meshgrid(np.arange(up), es, np.arange(down), indexing="ij")
-    t_i = p_i * down + half - up * (down * e_i + f_i)
-    W = np.where((t_i >= 0) & (t_i < L_h),
-                 np.asarray(h)[np.clip(t_i, 0, L_h - 1)], 0.0)
-    W = torch.as_tensor(W, dtype=x.dtype, device=x.device)   # (up, K_e, down)
+    es = _poly_blocks(len(h), up, down)
+    e_min, e_max = int(es[0]), int(es[-1])
+    if W is None:
+        W = torch.as_tensor(_poly_matrix(h, up, down), dtype=x.dtype, device=x.device)
 
     n_j = -(-n_out_max // up)
     n_b = -(-T_pad // down)

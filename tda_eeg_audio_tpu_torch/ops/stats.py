@@ -36,12 +36,16 @@ def _rankdata_avg(x, valid=None):
     return avg_rank_sorted.gather(-1, inv).to(x.dtype)
 
 
-def _t_sf(t, df):
+def _t_sf(t, df, nu_max: int):
     """Student-t survival function P(T > t) for integer degrees of freedom,
     by the closed-form series (Abramowitz & Stegun 26.7.3-4) in float64:
     with θ = atan(t/√ν), P(|T| < t) is 2/π·(θ + sinθ·cosθ·Σ) for odd ν and
     sinθ·Σ for even ν, Σ a finite series in cos²θ.  Exact where the
-    regularized incomplete beta of the reference is; df here is n − 2."""
+    regularized incomplete beta of the reference is; df here is n − 2.
+
+    nu_max: a bound on every df, known without reading df (the caller's
+    static sizes), so the series' length costs no host synchronisation;
+    the terms past an entry's own ν add exact zeros."""
     t64 = t.to(torch.float64)
     nu = torch.round(df.to(torch.float64))
     th = torch.atan(t64.abs() / torch.sqrt(nu))
@@ -52,8 +56,7 @@ def _t_sf(t, df):
     acc = torch.ones_like(t64)
     # odd: Σ = 1 + (2/3)c² + (2·4)/(3·5)c⁴ + ... up to c^{ν−3}
     # even: Σ = 1 + (1/2)c² + (1·3)/(2·4)c⁴ + ... up to c^{ν−2}
-    k_max = int(nu.max().item()) if nu.numel() else 0
-    for k in range(1, k_max // 2 + 1):
+    for k in range(1, nu_max // 2 + 1):
         num = torch.where(odd, 2.0 * k, 2.0 * k - 1.0)
         den = torch.where(odd, 2.0 * k + 1.0, 2.0 * k)
         term = term * c2 * num / den
@@ -83,7 +86,7 @@ def spearmanr(x, y, valid=None):
     r = torch.where(den > 0, num / den, 0.0).clamp(-1.0, 1.0)
     df = torch.clamp(n - 2.0, min=1.0)
     t = r * torch.sqrt(df / torch.clamp(1.0 - r * r, min=1e-12))
-    p = (2.0 * _t_sf(t.abs(), df)).clamp(0.0, 1.0)
+    p = (2.0 * _t_sf(t.abs(), df, max(x.shape[-1] - 2, 1))).clamp(0.0, 1.0)
     return r, p
 
 

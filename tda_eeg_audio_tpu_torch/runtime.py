@@ -17,6 +17,14 @@ accumulates on its device and is read to the host once, when the block
 closes.  Outside a block a span costs its profiler range and no
 synchronisation, and a count one check of a module global.
 `last_record()` returns the whole record of the last block that closed.
+`host_waits(name, device)` counts, inside a block, the implicit
+synchronisations of a part of the program (a host wait for the card) into
+the counter `name`; the spans' own synchronisations are not counted.
+
+Uploads without a host wait: `to_device` copies a host array to a CUDA
+device through pinned memory and returns at once; `device_constant` builds
+a constant (a filter design, an index list) once per (device, parameters)
+and keeps it there.
 
 Multi-process runs: `init_distributed` joins a `torch.distributed` group
 (one process per card, or several processes on the CPU), `process_shard`
@@ -26,10 +34,13 @@ gives each process its slice of a work list.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
+import warnings
 from collections import defaultdict
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -61,6 +72,7 @@ class _Record:
         self.parent = {}                # name → the parent of its first call
         self.open = []                  # [name, ms of direct children] a span
         self.counters = defaultdict(dict)   # name → {device or None: sum}
+        self.waits_open = False         # a host_waits() block has warn mode on
 
     def close(self) -> dict:
         counters = {}
@@ -140,7 +152,7 @@ def _span(name: str, device: torch.device, timed: bool):
             frame = [name, 0.0]
             rec.open.append(frame)
         if cuda:
-            torch.cuda.synchronize(device)
+            _span_sync(device, rec)
         t0 = time.perf_counter()
         try:
             yield t
@@ -148,7 +160,7 @@ def _span(name: str, device: torch.device, timed: bool):
             if rec is not None:
                 rec.open.pop()
         if cuda:
-            torch.cuda.synchronize(device)
+            _span_sync(device, rec)
         t.ms = (time.perf_counter() - t0) * 1e3
         if rec is not None:
             rec.ms[name] = rec.ms.get(name, 0.0) + t.ms
@@ -156,6 +168,73 @@ def _span(name: str, device: torch.device, timed: bool):
             rec.self_ms[name] += t.ms - frame[1]
             if rec.open:
                 rec.open[-1][1] += t.ms
+
+
+def _span_sync(device: torch.device, rec) -> None:
+    """A timed span's synchronisation, left out of an open `host_waits`'
+    count."""
+    if rec is None or not rec.waits_open:
+        torch.cuda.synchronize(device)
+        return
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        torch.cuda.synchronize(device)
+    finally:
+        torch.cuda.set_sync_debug_mode("warn")
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def host_waits(name: str, device: torch.device):
+    """Inside a `timed_spans()` block, count into the counter `name` every
+    implicit synchronisation the enclosed code makes on a CUDA device (a
+    blocking copy, `.item()`, a data-dependent shape), as
+    `torch.cuda.set_sync_debug_mode("warn")` reports them; a timed span's
+    own synchronisations are not counted, and its other warnings pass on.
+    On the CPU the count is 0: no card to wait for.  Outside a block it
+    does nothing."""
+    if _record is None:
+        yield
+        return
+    if device.type != "cuda":
+        yield
+        count(name, 0)
+        return
+    rec, mode = _record, torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        rec.waits_open = True
+        try:
+            yield
+        finally:
+            rec.waits_open = False
+            torch.cuda.set_sync_debug_mode(mode)
+    waits = [w for w in caught if SYNC_WARNING in str(w.message)]
+    for w in caught:            # the block's other warnings, as they were
+        if w not in waits:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    count(name, len(waits))
+
+
+def to_device(array, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on `device` (of `dtype`, else its own):
+    on a CUDA device through pinned memory and a non-blocking copy, so the
+    host does not wait for the card; on the CPU `torch.as_tensor`."""
+    t = torch.as_tensor(np.asarray(array), dtype=dtype)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(design, device: torch.device, dtype, *args) -> torch.Tensor:
+    """`design(*args)` (a host array) as a `dtype` tensor on `device`,
+    built once per (design, device, dtype, args) and kept; the caller must
+    not write to it."""
+    return to_device(design(*args), device, dtype)
 
 
 def span(name: str, device: torch.device):

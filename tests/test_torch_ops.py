@@ -136,5 +136,5 @@ def test_t_sf_closed_form_matches_scipy():
 
     t = np.linspace(0.0, 12.0, 49).astype(np.float32)
     for df in range(1, 16):
-        got = tstats._t_sf(_t(t), torch.full_like(_t(t), float(df))).numpy()
+        got = tstats._t_sf(_t(t), torch.full_like(_t(t), float(df)), df).numpy()
         np.testing.assert_allclose(got, sps.t.sf(t, df), atol=1e-6)

@@ -17,6 +17,7 @@ runs the plain reduction); three complete slow/fast pairs are fewer than the
 5 the band statistics need, so those are held against the reference on
 synthetic rows of 8 subjects, where both runners are also fed the same sign
 draws and `wass_h1_perm_p` is compared too."""
+import contextlib
 import csv
 import dataclasses
 import json
@@ -32,7 +33,10 @@ from tda_eeg_audio_tpu.config import (DEFAULT_CONFIG as JAX_CONFIG,
 from tda_eeg_audio_tpu.io import device_store as jstore
 from tda_eeg_audio_tpu.models import study as jstudy
 from tda_eeg_audio_tpu_torch.convert import config_from_jax, store_from_numpy
+from tda_eeg_audio_tpu_torch.models import programs as tprog
 from tda_eeg_audio_tpu_torch.models import study as tstudy
+from tda_eeg_audio_tpu_torch.ops import signal as tsig
+from tda_eeg_audio_tpu_torch.runtime import device_constant
 from tda_eeg_audio_tpu_torch.models.homology_exec import run_tda
 from torch_tiny_data import N_RS_MAX, T_AUDIO_PAD, T_EEG_PAD, TinyDataset
 
@@ -296,3 +300,236 @@ def test_stats_on_synthetic_rows_match_reference(runs):
     _same(tr2._control_stats(ctl_rows), jr2._control_stats(ctl_rows), "control")
     print("worst error / tolerance by kind: "
           + json.dumps({k: round(v, 3) for k, v in sorted(WORST.items())}))
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# The comparison loop's per-stage arrays and constants
+# ─────────────────────────────────────────────────────────────────────────────
+
+
+def _old_bank_gather_idx(runner, idxs, metas):
+    """The flat bank indices of a batch as the loop built them batch by
+    batch, or None where the bank cannot serve the batch."""
+    bk = runner._eeg_bank
+    cols = bk["K_base"] + np.arange(tstudy.K_CMP, dtype=np.int64)
+    gidx = np.zeros((len(idxs), tstudy.N_BANDS, tstudy.K_CMP), np.int64)
+    for b, meta in enumerate(metas):
+        if meta.get("failed"):
+            continue
+        row = bk["slot"].get(idxs[b])
+        if row is None:
+            return None
+        gidx[b] = (row * tstudy.N_BANDS + np.arange(tstudy.N_BANDS))[:, None] * bk["K"] + cols
+    return gidx.reshape(-1)
+
+
+def _old_per_batch_arrays(runner, mis_idx, mis_slot, bank):
+    """Each (batch, shard)'s arrays as the comparison loop built them in
+    the batch, before they were computed once a stage."""
+    zero_slot = bank["b"].shape[0] - 1
+    N, out = len(runner.ds), []
+    for b0 in range(0, N, runner.eeg_batch):
+        idxs = list(range(b0, min(b0 + runner.eeg_batch, N)))
+        _, _, ns_e_b, ns_a_b, metas_b = runner._load_batch(idxs)
+        gidx = (_old_bank_gather_idx(runner, idxs, metas_b)
+                if runner._eeg_bank is not None else None)
+        for dev, part, sl in runner._shards(idxs):
+            B = len(part)
+            slots = np.full(B, zero_slot, np.int64)
+            mis_n_win = np.zeros(B, np.int64)
+            mis_degen = np.zeros((B, tstudy.N_BANDS, tstudy.K_CMP), bool)
+            has_mis = np.zeros(B, bool)
+            for b, i in enumerate(part):
+                fn, subj, cond = runner.ds.index[i]
+                u = mis_slot.get(mis_idx.get((subj, cond)))
+                if u is not None:
+                    has_mis[b], slots[b] = True, u
+                    mis_n_win[b], mis_degen[b] = bank["n_win"][u], bank["degen"][u]
+            out.append(dict(
+                b0=b0, sl=sl, idxs=idxs, metas=metas_b, served=gidx is not None,
+                slots=slots, has_mis=has_mis, mis_n_win=mis_n_win, mis_degen=mis_degen,
+                ns_e=ns_e_b[sl], ns_a=ns_a_b[sl],
+                gidx=None if gidx is None else gidx.reshape(len(idxs), -1)[sl].reshape(-1)))
+    return out
+
+
+def _planning_runner(tr, case):
+    """A copy of the finished runner `tr` set up for `case`, with its
+    mismatch partners and a made-up mismatch bank (its rows' window counts
+    and degenerate flags from a seed)."""
+    r = tstudy.StudyRunner.__new__(tstudy.StudyRunner)
+    r.__dict__.update(tr.__dict__)
+    if case == "ragged":            # 8 recordings in batches of 3, 3, 2
+        r.eeg_batch = 3
+    elif case == "bank_fallback":   # a live recording without a bank row
+        bk = dict(r._eeg_bank)
+        bk["slot"] = {i: row for i, row in bk["slot"].items() if i != 2}
+        r._eeg_bank = bk
+    elif case == "mesh":            # two shards of 2 a batch of 4
+        r.mesh = [torch.device("cpu"), torch.device("cpu")]
+    elif case == "no_bank":
+        r._eeg_bank = None
+    mis_idx = r._mismatch_index()
+    mis_list = sorted(set(mis_idx.values()))
+    # the failed recording has no row, as in `_mismatch_diagram_cache`
+    mis_slot = {i: u for u, i in enumerate(mis_list) if i != FAILS}
+    rng = np.random.default_rng(7)
+    U = len(mis_list)
+    bank = dict(b=torch.zeros((U + 1, 1, 1)),
+                n_win=rng.integers(0, 20, U),
+                degen=rng.random((U, tstudy.N_BANDS, tstudy.K_CMP)) < 0.3)
+    return r, mis_idx, mis_slot, bank
+
+
+@pytest.mark.parametrize("case", ["failed", "ragged", "bank_fallback", "mesh", "no_bank"])
+def test_comparison_plan_sliced_per_batch_equals_the_per_batch_arrays(runs, case):
+    """The comparison loop's arrays computed once a stage
+    (`_comparison_plan`), uploaded once a device (`_plan_on`) and sliced
+    per batch and shard as the loop slices them, equal what the loop built
+    in each batch: slots, has_mis, mis_n_win, mis_degen, the lengths, the
+    bank's gidx and the batch's fallback decision.  "failed": batches of
+    4, the second holding the failed recording and served by the bank."""
+    r, mis_idx, mis_slot, bank = _planning_runner(runs["tr"], case)
+    plan = r._comparison_plan(mis_idx, mis_slot, bank)
+    old = _old_per_batch_arrays(r, mis_idx, mis_slot, bank)
+    assert len(old) == {"mesh": 4, "ragged": 3}.get(case, 2)
+    served = []
+    for o in old:
+        dev = r.device if r.mesh is None else r.mesh[0]
+        on = r._plan_on(plan, dev)
+        rows = slice(o["b0"] + o["sl"].start, o["b0"] + o["sl"].stop)
+        assert r._bank_serves(plan, o["idxs"], o["metas"]) == o["served"]
+        served.append(o["served"])
+        np.testing.assert_array_equal(plan["has_mis"][rows], o["has_mis"])
+        np.testing.assert_array_equal(plan["mis_degen"][rows], o["mis_degen"])
+        for k in ("slots", "mis_n_win", "ns_e", "ns_a", "mis_degen"):
+            assert on[k].device.type == dev.type
+            np.testing.assert_array_equal(on[k][rows].numpy(), o[k], err_msg=k)
+        assert on["mis_degen"].dtype == torch.bool
+        if o["served"]:
+            np.testing.assert_array_equal(on["gidx"][rows].reshape(-1).numpy(), o["gidx"])
+    assert any(p.any() for p in (plan["has_mis"], plan["mis_degen"]))
+    want = {"bank_fallback": [False, True], "no_bank": [False, False],
+            "mesh": [True, True, True, True], "ragged": [True, True, True]}
+    assert served == want.get(case, [True, True])
+    if case == "no_bank":
+        assert "gidx" not in plan and "gidx" not in r._plan_on(plan, r.device)
+
+
+def test_store_batch_takes_a_contiguous_run_by_a_slice(runs, monkeypatch):
+    """A contiguous run of recordings is taken from the store by a slice,
+    with nothing uploaded; other indices the old way; both the same rows."""
+    st = runs["tr"].store
+    uploads = []
+    as_tensor = torch.as_tensor
+
+    def spy(x, *a, **kw):
+        uploads.append(np.asarray(x).copy())
+        return as_tensor(x, *a, **kw)
+
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    e1, a1, ne1, na1, m1 = st.batch([2, 3, 4], pad_to=4)
+    assert not uploads
+    e2, a2, ne2, na2, m2 = st.batch([4, 2, 3], pad_to=4)
+    assert len(uploads) == 1
+    monkeypatch.undo()
+    for x, y in ((e1, e2), (a1, a2)):
+        assert torch.equal(x[:3], y[[1, 2, 0]]) and not x[3].any()
+    assert torch.equal(e1[:3], st.eeg[2:5]) and torch.equal(a1[:3], st.audio[2:5])
+    np.testing.assert_array_equal(ne1[:3], st.ns_e[2:5])
+    np.testing.assert_array_equal(na1[:3], st.ns_a[2:5])
+    assert [m["filename"] for m in m1] == [st.metas[i]["filename"] for i in (2, 3, 4)]
+
+
+CONSTANTS = {
+    "fir_bank": (tsig.design_band_fir_bank, torch.float32, (250, 4, 101)),
+    "envelope_lowpass": (tsig.design_envelope_lowpass, torch.float32, (250,)),
+    "hilbert": (tsig.design_hilbert_fir, torch.float32, ()),
+    "resample_matrix": (tsig.resample_poly_matrix, torch.float32, (250, 44100)),
+    "h1_feature_columns": (np.asarray, torch.int64, (tprog.H1_FEAT_COLS,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTANTS))
+def test_device_constant_is_one_object_per_device_and_parameters(name):
+    """`runtime.device_constant` returns one tensor per (design, device,
+    dtype, parameters), equal to the NumPy design; other parameters give
+    another.  The resample matrix gives `resample_poly_device` the same
+    bits as the matrix it builds itself."""
+    design, dtype, args = CONSTANTS[name]
+    cpu = torch.device("cpu")
+    a = device_constant(design, cpu, dtype, *args)
+    assert device_constant(design, torch.device("cpu"), dtype, *args) is a
+    assert a.dtype == dtype and a.device == cpu
+    assert torch.equal(a, torch.as_tensor(np.asarray(design(*args)), dtype=dtype))
+    if name == "fir_bank":
+        b = device_constant(design, cpu, dtype, 250, 4, 1537)
+        assert b is not a and b.shape == (5, 1537)
+    if name == "resample_matrix":
+        h, up, down = tsig.design_resample_poly_filter(*args)
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, 44100)),
+                            dtype=torch.float32)
+        n_in = torch.tensor([44100, 30000])
+        y0, n0 = tsig.resample_poly_device(x, n_in, 250, h, up, down)
+        y1, n1 = tsig.resample_poly_device(x, n_in, 250, h, up, down, a)
+        assert torch.equal(y0, y1) and torch.equal(n0, n1)
+
+
+TINY_CFG = config_from_jax(dataclasses.asdict(dataclasses.replace(
+    JAX_CONFIG, window_sec=0.2, fir_numtaps=101, wasserstein_backend="sinkhorn")))
+_TINY, _TINY_CPU_ROWS = {}, {}
+
+
+def _tiny_runner(device, bank, mesh=None):
+    """A runner over the tiny dataset (8 recordings, one failing) staged on
+    `device` once, batches of 4; with the bank the features stage has run."""
+    from tda_eeg_audio_tpu_torch.io.device_store import build_from_dataset
+
+    if device not in _TINY:
+        _TINY[device] = build_from_dataset(
+            TinyDataset(TINY_CFG, n_windows={SHORT: 5}, fails=(FAILS,)),
+            GOOD_ELECTRODES, T_EEG_PAD, T_AUDIO_PAD, device=device)
+    r = tstudy.StudyRunner(_TINY[device], TINY_CFG, eeg_batch=4, verbose=False,
+                           eeg_bank=bank, t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
+                           n_rs_max=N_RS_MAX, mesh=mesh)
+    if bank:
+        r.compute_feature_dataset()
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["bank", "in_call", "mesh"])
+def test_comparison_loop_never_waits_for_the_card(path, monkeypatch):
+    """On a CUDA card, the comparison's batch loop of the bank path, the
+    in-call path (`eeg_bank` off) and a two-shard mesh on one card: the
+    counter `comparison_dispatch.host_waits` reads 0 in a `timed_spans()`
+    block, a run under `torch.cuda.set_sync_debug_mode("error")` from the
+    plan's upload to the end of the loop raises nothing, and its rows equal
+    the CPU runner's within this file's row tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
+    from tda_eeg_audio_tpu_torch import runtime
+
+    bank = path != "in_call"
+    mesh = [torch.device("cuda", 0)] * 2 if path == "mesh" else None
+    _tiny_runner("cuda", bank, mesh)._fused_rows()      # libraries, constants
+    with runtime.timed_spans():
+        _tiny_runner("cuda", bank, mesh)._fused_rows()
+    assert runtime.last_record()["counters"]["comparison_dispatch.host_waits"] == 0
+
+    @contextlib.contextmanager
+    def strict(name, device):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    r = _tiny_runner("cuda", bank, mesh)
+    monkeypatch.setattr(tstudy, "host_waits", strict)
+    rows = r._fused_rows()
+    monkeypatch.undo()
+    assert r._bank_served == (2 if bank else 0)
+    if bank not in _TINY_CPU_ROWS:
+        _TINY_CPU_ROWS[bank] = _tiny_runner("cpu", bank)._fused_rows()
+    _same(rows, _TINY_CPU_ROWS[bank], f"card_{path}")

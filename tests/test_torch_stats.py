@@ -10,6 +10,8 @@ relative difference 1.3e-7); BH-FDR reject flags exact, adjusted p rtol
 1e-6; Cohen's d rtol 1e-5; the sign-flip exceedance count exact (its p
 within one float32 ULP, rtol 2e-7) and the bootstrap CI rtol 1e-5, both on
 draws taken from `jax.random` and fed to the port."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -140,3 +142,45 @@ def test_bootstrap_mean_ci_matches_reference():
     g = torch.Generator().manual_seed(1)
     _, lo, hi = tstats.bootstrap_mean_ci(torch.as_tensor(v), 200, generator=g)
     assert bool((lo < hi).all())
+
+
+def _t_sf_data_bound(t, df):
+    """`_t_sf` with the series' length read from the data (the largest ν),
+    as it was before the bound became static."""
+    t64 = t.to(torch.float64)
+    nu = torch.round(df.to(torch.float64))
+    th = torch.atan(t64.abs() / torch.sqrt(nu))
+    s, c = torch.sin(th), torch.cos(th)
+    c2 = c * c
+    odd = torch.remainder(nu, 2) == 1
+    term = torch.ones_like(t64)
+    acc = torch.ones_like(t64)
+    k_max = int(nu.max().item()) if nu.numel() else 0
+    for k in range(1, k_max // 2 + 1):
+        num = torch.where(odd, 2.0 * k, 2.0 * k - 1.0)
+        den = torch.where(odd, 2.0 * k + 1.0, 2.0 * k)
+        term = term * c2 * num / den
+        last = torch.where(odd, nu - 3.0, nu - 2.0)
+        acc = acc + torch.where(2.0 * k <= last, term, 0.0)
+    a_odd = torch.where(nu == 1, 2.0 * th / math.pi,
+                        2.0 / math.pi * (th + s * c * acc))
+    a = torch.where(odd, a_odd, s * acc)
+    p = 0.5 * (1.0 - a)
+    return torch.where(t64 >= 0, p, 1.0 - p).to(t.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nu", range(1, 14))
+def test_t_sf_static_bound_is_bit_for_bit_the_data_bound(nu, dtype):
+    """The series' length from the static bound ν ≤ K − 2 = 13 of the
+    comparison's K = 15 windows gives the bits of the length read from the
+    data, for ν = 1…13 alone and mixed with every other ν, at t of both
+    signs, ±0 and ±inf: the terms past an entry's own ν add exact zeros."""
+    t = torch.tensor([-math.inf, -40.0, -3.7, -1.0, -1e-3, -0.0, 0.0, 1e-3, 0.5,
+                      1.0, 2.2, 3.7, 12.0, 40.0, math.inf], dtype=dtype)
+    df = torch.full_like(t, float(nu))
+    assert torch.equal(tstats._t_sf(t, df, 13), _t_sf_data_bound(t, df))
+    mixed = (torch.arange(t.numel()) % 13 + 1).to(dtype)
+    mixed[0] = nu
+    assert torch.equal(tstats._t_sf(t, mixed, 13), _t_sf_data_bound(t, mixed))
+    assert torch.equal(tstats._t_sf(t, df, nu), _t_sf_data_bound(t, df))

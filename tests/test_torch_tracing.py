@@ -6,6 +6,7 @@ import dataclasses
 import io
 import json
 import time
+import warnings
 
 import numpy as np
 import pytest
@@ -119,6 +120,39 @@ def test_logged_span_times_itself_while_the_logger_is_on(no_sync, monkeypatch):
     ev = json.loads(sink.getvalue())
     assert (ev["event"], ev["stage"], ev["items"], ev["n"]) == ("stage", "part", 3, 1)
     assert ev["seconds"] >= 0.0
+
+
+def test_host_waits_counts_the_syncs_of_its_block_but_not_the_spans(monkeypatch):
+    """`runtime.host_waits` on a card whose synchronisations warn as
+    `torch.cuda.set_sync_debug_mode("warn")` makes them (a stand-in here):
+    it counts the block's own, leaves out a timed span's two, passes other
+    warnings on and restores the mode; on the CPU it counts 0; outside a
+    block it counts nothing."""
+    mode = {"now": 0}
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: mode["now"])
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode",
+                        lambda m: mode.__setitem__("now", {"warn": 1}.get(m, m)))
+
+    def synchronize(*a, **k):
+        if mode["now"]:
+            warnings.warn(runtime.SYNC_WARNING)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    with runtime.timed_spans():
+        with runtime.host_waits("w", CUDA):
+            torch.cuda.synchronize()
+            with runtime.span("x", CUDA):
+                torch.cuda.synchronize()
+        with pytest.warns(UserWarning, match="another warning"):
+            with runtime.host_waits("other", CUDA):
+                warnings.warn("another warning")
+        with runtime.host_waits("cpu", CPU):
+            pass
+    assert runtime.last_record()["counters"] == {"w": 2, "other": 0, "cpu": 0}
+    assert mode["now"] == 0
+    with runtime.host_waits("w", CUDA):
+        torch.cuda.synchronize()
+    assert mode["now"] == 0
 
 
 @pytest.fixture(scope="module")
