@@ -629,6 +629,7 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False)
     at the int32 rate.  The launches made here are not counted."""
     import torch
 
+    from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import homology_h1 as H
     from tda_eeg_audio_tpu_torch.ops import phase1_cuda as P1
 
@@ -679,8 +680,9 @@ def phase1_check(dm, n_pts, n, na_max, reps: int = 5, against_cpu: bool = False)
     if not all(same_bits(prof[k], got[k]) for k in got if k != "m"):
         mismatched.append("instrumented build")
     n_sms = torch.cuda.get_device_properties(dm.device).multi_processor_count
+    lib_p = cuda_build.load(P1.SRC, P1.SIGNATURES, P1.PROFILE_FLAGS)
     phases = phase1_profile_reading(prof["prof"], prof["stamps"], n_sms,
-                                    P1.blocks_per_sm(n, True))
+                                    P1.blocks_per_sm(n, lib_p))
 
     run_kernel = lambda: P1.phase1_cuda(dm, n, 2.0, na_max, n_pts)  # noqa: E731
     run_plain = lambda: H._phase1(dm, n, 2.0, na_max, n_pts)  # noqa: E731
@@ -969,11 +971,13 @@ def sinkhorn_kernel_check(main_pairs, dev, clock_hz):
     import torch
 
     from tda_eeg_audio_tpu_torch.models import programs as P
+    from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as WC
 
     launches0 = WC.sinkhorn_tiered_cuda.launches
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    res = {"layout": WC.layout_report(), "layout_instrumented": WC.layout_report(True)}
+    lib_p = cuda_build.load(WC.SRC, WC.SIGNATURES, WC.PROFILE_FLAGS)
+    res = {"layout": WC.layout_report(), "layout_instrumented": WC.check_layout(lib_p)}
     for name, pairs in (("main", main_pairs), ("classes", sinkhorn_class_pairs(dev))):
         before = WC.sinkhorn_tiered_cuda.launches
         got = P._wass_sinkhorn_tiered(*pairs)
@@ -1932,6 +1936,7 @@ def iir_kernel_check(dev, eeg64, n64, clock_hz):
     import torch
     from scipy import signal as sps
 
+    from tda_eeg_audio_tpu_torch.ops import cuda_build
     from tda_eeg_audio_tpu_torch.ops import iir_cuda as IC
     from tda_eeg_audio_tpu_torch.ops import signal as S
 
@@ -1973,7 +1978,9 @@ def iir_kernel_check(dev, eeg64, n64, clock_hz):
                          plan={k: plan[k] for k in ("threads", "chunk", "shared_bytes",
                                                     "blocks_per_sm", "staging",
                                                     "scratch_bytes")},
-                         library=IC.library_layout(plan, n_sec),
+                         library=IC.check_layout(
+                             cuda_build.load(IC.SRC, IC.SIGNATURES), n_sec, plan["threads"],
+                             plan["shared_bytes"], plan["staging"] == "device"),
                          **iir_bound(nn.expand(xx.shape[:-1]), T_, nb, n_sec,
                                      edge, clock_hz))
 
@@ -2185,20 +2192,11 @@ def main() -> int:
 
     # ── phase 2: build every kernel, one nvcc each, side by side ──
     t0 = time.perf_counter()
-    _, nvcc_s = cuda_build.build_libraries(
-        [(HC.SRC, ()), (HC.SRC, HC.PROFILE_FLAGS), (P1.SRC, ()),
-         (P1.SRC, P1.PROFILE_FLAGS), (IC.SRC, ()), (WC.SRC, ()),
-         (WC.SRC, WC.PROFILE_FLAGS), (SL.SRC, ()), (WH.SRC, ()), (WS.SRC, ())],
-        verbose=True)
-    HC._load()
-    P1._load()
-    P1._load(profile=True)
-    IC._load()
-    WC._load()
-    WC._load(profile=True)
-    SL._load()
-    WH._load()
-    WS._load()
+    libs = [(HC, ()), (HC, HC.PROFILE_FLAGS), (P1, ()), (P1, P1.PROFILE_FLAGS),
+            (IC, ()), (WC, ()), (WC, WC.PROFILE_FLAGS), (SL, ()), (WH, ()), (WS, ())]
+    _, nvcc_s = cuda_build.build_libraries([(m.SRC, f) for m, f in libs], verbose=True)
+    for m, flags in libs:
+        cuda_build.load(m.SRC, m.SIGNATURES, flags)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{nvcc_s if nvcc_s is not None else 'cached'})", flush=True)
 

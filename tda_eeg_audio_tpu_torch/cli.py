@@ -51,6 +51,7 @@ def _build_runner(args):
     import dataclasses
 
     from .config import DEFAULT_CONFIG, GOOD_ELECTRODES
+    from .io.device_store import build_from_dataset
     from .models.study import StudyRunner
     from .runtime import init_distributed, resolve_device
 
@@ -74,15 +75,12 @@ def _build_runner(args):
 
         ds = SynthDataset(n_subjects=args.subjects,
                           n_per_subject=args.per_subject)
-    # device-resident ingest: the dataset is staged into device memory once,
-    # so multi-stage commands (study) never cross the host↔device link again
-    use_store = args.store if args.store is not None else dev.type == "cuda"
-    if use_store:
-        from .io.device_store import build_from_dataset
-
-        ds = build_from_dataset(ds, GOOD_ELECTRODES, args.t_eeg_pad,
-                                args.t_audio_pad, device=dev, verbose=True)
-    return StudyRunner(ds, cfg, eeg_batch=args.batch, results_dir=args.results,
+    # the dataset is staged into the device's memory once, so every stage
+    # reads each file once and multi-stage commands (study) never cross the
+    # host↔device link again
+    store = build_from_dataset(ds, GOOD_ELECTRODES, args.t_eeg_pad, args.t_audio_pad,
+                               device=dev, verbose=True)
+    return StudyRunner(store, cfg, eeg_batch=args.batch, results_dir=args.results,
                        backend=args.backend, t_eeg_pad=args.t_eeg_pad,
                        t_audio_pad=args.t_audio_pad, n_rs_max=args.n_rs_max,
                        device=dev, mesh="auto" if args.mesh == "auto" else None)
@@ -95,10 +93,6 @@ def _parser() -> argparse.ArgumentParser:
                                         "control", "eda", "study"])
     ap.add_argument("--data", default=None,
                     help=".mat data root (data/slow, data/fast); default: synthetic")
-    ap.add_argument("--store", action=argparse.BooleanOptionalAction,
-                    default=None,
-                    help="stage the dataset into device memory once "
-                         "(default: on for cuda, off for cpu)")
     ap.add_argument("--subjects", type=int, default=45)
     ap.add_argument("--per-subject", type=int, default=16)
     ap.add_argument("--results", default="results")
@@ -173,7 +167,7 @@ def main(argv=None) -> int:
     from .utils.profiling import device_trace
 
     tlog.LOGGER.event("command_start", command=args.command,
-                      n_recordings=len(runner.ds))
+                      n_recordings=len(runner.store))
     # --profile: the command is the top span of one timed block, whose
     # record (every span's ms, calls, parent and self ms; the counters) is
     # written beside the trace
@@ -206,7 +200,7 @@ def _dispatch(args, runner, out_dir: Path) -> int:
     if args.command == "eda":
         from .models.eda import run_eda
 
-        out = run_eda(runner.ds, runner.cfg, results_dir=out_dir,
+        out = run_eda(runner.store, runner.cfg, results_dir=out_dir,
                       eeg_batch=args.batch, t_pad=runner.t_eeg_pad,
                       device=runner.device)
         print(f"eda: {out['n_recordings']} recordings, "
@@ -221,7 +215,7 @@ def _dispatch(args, runner, out_dir: Path) -> int:
         from .runtime import process_rank_world, process_shard
 
         if process_rank_world()[1] > 1 and bs is None and be is None:
-            bs, be = process_shard(len(runner.ds))
+            bs, be = process_shard(len(runner.store))
             args.write_partial = True
             print(f"process shard: recordings [{bs}, {be})")
         X, y, subjects, filenames, meta = runner.compute_feature_dataset(

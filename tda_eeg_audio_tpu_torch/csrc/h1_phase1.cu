@@ -578,18 +578,27 @@ cudaError_t set_smem(int smem) {
 
 }  // namespace
 
-// Dynamic shared-memory bytes the kernel lays out for n-point windows.
-extern "C" int h1_phase1_smem_bytes(int n) { return layout(n).total; }
-
-// Blocks of `threads` threads one SM holds at n (< 0: error).
-extern "C" int h1_phase1_blocks_per_sm(int n, int threads) {
+// The layout for n-point windows in blocks of `threads` threads: out[0..5) =
+// threads a block, the dynamic shared bytes the kernel lays out, registers
+// and local (spill) bytes a thread, blocks an SM by the card's occupancy
+// calculator.  Returns a cudaError_t.
+extern "C" int h1_phase1_layout(int n, int threads, int* out) {
   const int smem = layout(n).total;
+  cudaError_t e = set_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, h1_phase1_kernel);
+  if (e != cudaSuccess) return (int)e;
   int nb = 0;
-  if (set_smem(smem) != cudaSuccess) return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, h1_phase1_kernel, threads,
-                                                    (size_t)smem) != cudaSuccess)
-    return -1;
-  return nb;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, h1_phase1_kernel, threads,
+                                                    (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = threads;
+  out[1] = smem;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = nb;
+  return 0;
 }
 
 extern "C" int h1_phase1_launch(const void* dm, const void* n_pts, int n_pts_64, int B,

@@ -84,7 +84,7 @@ __device__ __forceinline__ unsigned smid() {
 __host__ __device__ constexpr int up16(int x) { return (x + 15) & ~15; }
 
 // Byte offsets of the block's dynamic shared memory; the wrapper's
-// kernel_plan computes the same total (h1_reduce_smem_bytes checks it).
+// kernel_plan computes the same total (h1_reduce_layout reports it).
 struct Layout {
   int col, l1, l2, rank, iu, ju, app, na, pair, off, cnt, misc, total;
 };
@@ -418,13 +418,22 @@ cudaError_t set_smem(int smem) {
 }
 
 template <int T>
-int blocks_per_sm(int smem) {
+int report(int smem, int* out) {
+  cudaError_t e = set_smem<T>(smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, h1_reduce_kernel<T>);
+  if (e != cudaSuccess) return (int)e;
   int nb = 0;
-  if (set_smem<T>(smem) != cudaSuccess) return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, h1_reduce_kernel<T>, T,
-                                                    (size_t)smem) != cudaSuccess)
-    return -1;
-  return nb;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, h1_reduce_kernel<T>, T,
+                                                    (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = T;
+  out[1] = smem;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = nb;
+  return 0;
 }
 
 template <int T>
@@ -437,18 +446,16 @@ int launch(const Args& a, int grid, int smem, cudaStream_t stream) {
 
 }  // namespace
 
-// Dynamic shared-memory bytes the kernel lays out for (n, Wp).
-extern "C" int h1_reduce_smem_bytes(int n, int Wp) {
-  return layout(n, n * (n - 1) / 2, Wp).total;
-}
-
-// Blocks of `threads` (64 or 256) threads and `smem` bytes that one SM holds
-// (< 0: error).
-extern "C" int h1_reduce_blocks_per_sm(int threads, int smem) {
+// The layout for (n, Wp) in blocks of `threads` (64 or 256) threads:
+// out[0..5) = threads a block, the dynamic shared bytes the kernel lays out,
+// registers and local (spill) bytes a thread, blocks an SM by the card's
+// occupancy calculator.  Returns a cudaError_t.
+extern "C" int h1_reduce_layout(int n, int Wp, int threads, int* out) {
+  const int smem = layout(n, n * (n - 1) / 2, Wp).total;
   switch (threads) {
-    case 64: return blocks_per_sm<64>(smem);
-    case 256: return blocks_per_sm<256>(smem);
-    default: return -1;
+    case 64: return report<64>(smem, out);
+    case 256: return report<256>(smem, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -12,12 +12,11 @@ reference's JSON/CSV schemas.
     artifacts; `write_sample_figures` — sample diagrams, filter response
 
 Backends.  With `backend` "auto" or "device" (the main path) every
-window-level computation runs on the runner's device (CUDA unless the store
-or `device` says "cpu") in the fused programs, and each stage reads its
-results back once, after its batch loop; recordings whose reduction
-overflowed (creator arena, step budget, bar count) are redone exactly
-through `homology_exec.run_tda`, whose flagged windows go to the host
-engine.  With `backend="host"` the staged parity path runs instead: the
+window-level computation runs on the runner's device (the store's) in the
+fused programs, and each stage reads its results back once, after its
+batch loop; recordings whose reduction overflowed (creator arena, step
+budget, bar count) are redone exactly through `homology_exec.run_tda`,
+whose flagged windows go to the host engine.  With `backend="host"` the staged parity path runs instead: the
 distances on the device, every diagram on the host engine, no bank.  With
 `wasserstein_backend="host_exact"` the comparison and the control take the
 staged path and match diagrams exactly on the host (persim's assignment,
@@ -49,6 +48,7 @@ import torch
 from .. import tuning
 from ..config import (PipelineConfig, DEFAULT_CONFIG, BAND_NAMES, FREQ_BANDS,
                       GOOD_ELECTRODES)
+from ..io.device_store import DeviceStore
 from ..ops import stats as tstats
 from ..ops.features import aggregate_mean_std
 from ..ops.signal import resample_n_out
@@ -106,9 +106,8 @@ def _ref_linspace_idx(n_win: int, k: int) -> np.ndarray:
 
 
 class StudyRunner:
-    """Runs the study over a dataset of recordings: a device-resident
-    `io.device_store.DeviceStore` (the main path), or a host dataset with
-    `.index` and `.load(i)` that is staged batch by batch.  `backend`
+    """Runs the study over a device-resident `io.device_store.DeviceStore`
+    (a host dataset is staged into one by `build_from_dataset`).  `backend`
     (None = cfg.homology_backend): "auto" / "device" take the fused device
     programs, "host" the staged path with every diagram on the host engine.
     `eeg_batch`, `eeg_bank` and `feature_na_max` left at None take the
@@ -122,13 +121,17 @@ class StudyRunner:
     multiple of dp and shard s takes the slice [s·b, (s+1)·b) of every
     batch, b = eeg_batch / dp.  A shard whose device is not there raises."""
 
-    def __init__(self, dataset, cfg: PipelineConfig = DEFAULT_CONFIG,
+    def __init__(self, store: DeviceStore, cfg: PipelineConfig = DEFAULT_CONFIG,
                  eeg_batch: int | None = None,
                  results_dir: str | Path | None = None,
                  verbose: bool = True, eeg_bank: bool | None = None,
                  feature_na_max: int | None = None, t_eeg_pad: int = 5800,
                  t_audio_pad: int = 44100 * 24, n_rs_max: int = 5900,
                  device=None, backend: str | None = None, mesh="auto"):
+        if not isinstance(store, DeviceStore):
+            raise TypeError(f"StudyRunner takes a DeviceStore, not "
+                            f"{type(store).__name__}: stage a host dataset with "
+                            "io.device_store.build_from_dataset")
         if cfg.wasserstein_backend not in WASSERSTEIN_BACKENDS:
             raise ValueError(f"wasserstein_backend {cfg.wasserstein_backend!r} "
                              f"not in {WASSERSTEIN_BACKENDS}")
@@ -136,7 +139,7 @@ class StudyRunner:
         if backend not in homology_exec.BACKENDS:
             raise ValueError(f"backend {backend!r} not in {homology_exec.BACKENDS}"
                              " (the port has no Pallas backend)")
-        self.ds = dataset
+        self.store = store
         self.cfg = cfg
         self.backend = backend
         # device-class backends take the fused programs; "host" the staged
@@ -162,26 +165,18 @@ class StudyRunner:
         self.t_audio_pad = t_audio_pad
         self.n_rs_max = n_rs_max
         self.n_win_max = (t_eeg_pad - cfg.win_samples) // cfg.step_samples + 1
-        self.failed_files: list[tuple[str, str]] = []
-        self._failed_idx: set[int] = set()
-        self.store = dataset if hasattr(dataset, "batch") else None
-        if self.store is not None:
-            if device is not None and \
-                    resolve_device(device).type != self.store.device.type:
-                raise ValueError("device differs from the store's")
-            self.device = self.store.device
-            if tuple(self.store.eeg.shape[1:]) != (len(GOOD_ELECTRODES), t_eeg_pad) \
-                    or self.store.audio.shape[1] != t_audio_pad:
-                raise ValueError("the store's padded shapes differ from the "
-                                 "runner's t_eeg_pad / t_audio_pad")
-            for i, m in enumerate(self.store.metas):
-                if m.get("failed"):
-                    self._failed_idx.add(i)
-                    self.failed_files.append((m["filename"],
-                                              m.get("error", "load failed")))
-        else:
-            self.device = resolve_device(device)
-        self.mesh = self._resolve_mesh(mesh, device is not None)
+        if device is not None and resolve_device(device).type != store.device.type:
+            raise ValueError("device differs from the store's")
+        self.device = store.device
+        if tuple(store.eeg.shape[1:]) != (len(GOOD_ELECTRODES), t_eeg_pad) \
+                or store.audio.shape[1] != t_audio_pad:
+            raise ValueError("the store's padded shapes differ from the "
+                             "runner's t_eeg_pad / t_audio_pad")
+        # files that failed to load, isolated by the store
+        self.failed_files = [(m["filename"], m.get("error", "load failed"))
+                             for m in store.metas if m.get("failed")]
+        self._failed_idx = {i for i, m in enumerate(store.metas) if m.get("failed")}
+        self.mesh = self._resolve_mesh(mesh)
         if self.mesh is not None:
             dp = len(self.mesh)
             self.eeg_batch = -(-self.eeg_batch // dp) * dp
@@ -193,10 +188,9 @@ class StudyRunner:
         # what the exact redo did, per stage (recordings), for reports
         self.redo_counts = dict(features=0, comparison=0, control_deviants=0)
 
-    def _resolve_mesh(self, mesh, device_given: bool):
-        """The shards' devices (see the class), or None.  Without a store
-        the runner's device becomes the mesh's first unless `device` names
-        another, which raises, as does a store on another device."""
+    def _resolve_mesh(self, mesh):
+        """The shards' devices (see the class), or None.  A mesh whose
+        first device is not the store's raises."""
         if mesh is None:
             return None
         if isinstance(mesh, str):
@@ -215,12 +209,9 @@ class StudyRunner:
             if d.type == "cuda" and d.index >= torch.cuda.device_count():
                 raise RuntimeError(f"mesh device {d} is not available: "
                                    f"{torch.cuda.device_count()} CUDA device(s)")
-        if self.store is None and not device_given:
-            self.device = devs[0]
         if _indexed(self.device) != devs[0]:
             raise ValueError(f"the mesh's first device {devs[0]} is not the "
-                             f"runner's device {self.device} (the store's, or "
-                             "`device`)")
+                             f"runner's device {self.device} (the store's)")
         return devs
 
     def _shards(self, idxs):
@@ -243,61 +234,6 @@ class StudyRunner:
         """The comparison and the control take the fused device pass."""
         return self.on_device and self.cfg.wasserstein_backend == "sinkhorn"
 
-    # ---------------- data staging ----------------
-
-    def _safe_load(self, i: int) -> dict:
-        """Per-file failure isolation: a recording that fails to load is
-        zeroed, marked failed and recorded in self.failed_files; callers
-        drop it from every artifact (window equalization, X rows, labels,
-        comparison rows), as the reference's per-file try/except does."""
-        try:
-            return self.ds.load(i)
-        except Exception as e:  # noqa: BLE001 — per-file isolation
-            fn, subj, cond = self.ds.index[i]
-            if i not in self._failed_idx:
-                self._failed_idx.add(i)
-                self.failed_files.append((fn, repr(e)))
-                tlog.LOGGER.event("load_failed", file=fn, condition=cond,
-                                  error=repr(e))
-            if self.verbose:
-                print(f"  LOAD FAILED {fn}: {e!r}")
-            return dict(eeg_raw=np.zeros((65, 250), np.float32),
-                        audio=np.zeros(44100, np.float32),
-                        filename=fn, subject=subj, condition=cond, failed=True)
-
-    def _rec_length(self, i: int) -> tuple[int, bool]:
-        """(n_eeg_samples, failed) without staging the waveforms."""
-        if self.store is not None:
-            return int(min(self.store.ns_e[i], self.t_eeg_pad)), \
-                bool(self.store.metas[i].get("failed"))
-        rec = self._safe_load(i)
-        if rec.get("failed"):
-            return 0, True
-        return min(rec["eeg_raw"].shape[1], self.t_eeg_pad), False
-
-    def _load_batch(self, idxs):
-        """(eeg (B, 47, t_eeg_pad), audio (B, t_audio_pad)) tensors on the
-        runner's device, host lengths ns_e / ns_a, metas.  Store mode slices
-        the device store; a host dataset is padded and uploaded."""
-        if self.store is not None:
-            return self.store.batch(idxs)
-        B = len(idxs)
-        eeg = np.zeros((B, len(GOOD_ELECTRODES), self.t_eeg_pad), np.float32)
-        audio = np.zeros((B, self.t_audio_pad), np.float32)
-        ns_e, ns_a, metas = np.zeros(B, np.int64), np.zeros(B, np.int64), []
-        for b, i in enumerate(idxs):
-            rec = self._safe_load(i)
-            e = rec["eeg_raw"][list(GOOD_ELECTRODES)]
-            ns_e[b] = min(e.shape[1], self.t_eeg_pad)
-            ns_a[b] = min(len(rec["audio"]), self.t_audio_pad)
-            eeg[b, :, :ns_e[b]] = e[:, :ns_e[b]]
-            audio[b, :ns_a[b]] = rec["audio"][:ns_a[b]]
-            metas.append(dict(filename=rec["filename"], subject=rec["subject"],
-                              condition=rec["condition"],
-                              failed=rec.get("failed", False)))
-        return (torch.as_tensor(eeg, device=self.device),
-                torch.as_tensor(audio, device=self.device), ns_e, ns_a, metas)
-
     def _dev(self, a, dtype=None):
         return torch.as_tensor(a, device=self.device, dtype=dtype)
 
@@ -306,14 +242,14 @@ class StudyRunner:
     def eeg_distances(self, idxs):
         """(len(idxs), 5, W, 47, 47) distance matrices of every window, the
         window mask (len(idxs), W) and the metas."""
-        eeg, _, ns_e, _, metas = self._load_batch(idxs)
+        eeg, _, ns_e, _, metas = self.store.batch(idxs)
         dist, _, wmask = programs.eeg_distance_program(
             eeg, ns_e, self.cfg, self.n_win_max, device=self.device)
         return dist, wmask, metas
 
     def _batches(self):
-        for b0 in range(0, len(self.ds), self.eeg_batch):
-            yield list(range(b0, min(b0 + self.eeg_batch, len(self.ds))))
+        for b0 in range(0, len(self.store), self.eeg_batch):
+            yield list(range(b0, min(b0 + self.eeg_batch, len(self.store))))
 
     # ---------------- stage: preprocessed/ artifacts ----------------
 
@@ -328,7 +264,7 @@ class StudyRunner:
         win, step = cfg.win_samples, cfg.step_samples
         meta_rows = []
         for idxs in self._batches():
-            eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+            eeg, audio, ns_e, ns_a, metas = self.store.batch(idxs)
             wins, wmask = programs.eeg_window_program(
                 eeg, ns_e, cfg, self.n_win_max, device=self.device)
             wins, wmask = wins.cpu().numpy(), wmask.cpu().numpy()
@@ -368,7 +304,7 @@ class StudyRunner:
         out_dir = Path(out_dir)
         n_files = 0
         for idxs in self._batches():
-            eeg, _, ns_e, _, metas = self._load_batch(idxs)
+            eeg, _, ns_e, _, metas = self.store.batch(idxs)
             dist, corr, wmask = programs.eeg_distance_program(
                 eeg, ns_e, self.cfg, self.n_win_max, device=self.device)
             dist, corr, wmask = (x.cpu().numpy() for x in (dist, corr, wmask))
@@ -392,7 +328,7 @@ class StudyRunner:
         nw = np.array([counts[i] for i in all_idx], np.int64)
         n_pair = (np.minimum(self._audio_window_counts(all_idx), nw)
                   if self.use_eeg_bank else None)
-        return SampleTables([self.ds.index[i][0].replace(".mat", "") for i in all_idx],
+        return SampleTables([self.store.index[i][0].replace(".mat", "") for i in all_idx],
                             nw, n_pair, self.cfg.window_sampling,
                             self.cfg.window_sample_seed)
 
@@ -437,18 +373,18 @@ class StudyRunner:
         K, the least window count, the zero-window files skipped)."""
         cfg = self.cfg
         win, step = cfg.win_samples, cfg.step_samples
-        by_name = lambda i: self.ds.index[i][0]  # noqa: E731
+        by_name = lambda i: self.store.index[i][0]  # noqa: E731
         # reference order: sorted slow files, then sorted fast files
         all_idx = [i for cond in ("slow", "fast") for i in sorted(
-            (i for i in range(len(self.ds)) if self.ds.index[i][2] == cond),
+            (i for i in range(len(self.store)) if self.store.index[i][2] == cond),
             key=by_name)]
 
         counts = {}
         for i in all_idx:
-            n_e, failed = self._rec_length(i)
-            if not failed:      # a failed file must not collapse the min
+            if i not in self._failed_idx:   # a failed file must not collapse the min
+                n_e = min(int(self.store.ns_e[i]), self.t_eeg_pad)
                 counts[i] = max((n_e - win) // step + 1, 0)
-        skipped_zero = [self.ds.index[i][0] for i in all_idx
+        skipped_zero = [self.store.index[i][0] for i in all_idx
                         if counts.get(i) == 0]
         for fn_ in skipped_zero:
             tlog.LOGGER.event("zero_window_skipped", file=fn_)
@@ -488,7 +424,7 @@ class StudyRunner:
                 pending.append((self._staged_features(idxs, use_idx, use_mask),
                                 idxs))
                 continue
-            eeg, _, ns_e, _, _ = self._load_batch(idxs)
+            eeg, _, ns_e, _, _ = self.store.batch(idxs)
             for dev, part, sl in self._shards(idxs):
                 with span("features_window_sample", self.device):
                     use_idx, use_mask = window_sample(tables, b0 + sl.start, len(part),
@@ -538,20 +474,18 @@ class StudyRunner:
             row0 = 0
             for agg, _, ovf, _, idxs in done:
                 for b, i in enumerate(idxs):
-                    if ovf[b] and i not in self._failed_idx:
+                    if ovf[b]:
                         if self.verbose:
                             print("  features: overflow → exact redo "
-                                  f"{self.ds.index[i][0]}")
+                                  f"{self.store.index[i][0]}")
                         tlog.LOGGER.event("feature_overflow_redo",
-                                          file=self.ds.index[i][0])
+                                          file=self.store.index[i][0])
                         agg[b] = self._staged_feature_agg([i], tables, row0 + b, K)[0]
                         self.redo_counts["features"] += 1
                 row0 += len(idxs)
         X_rows, y, subjects, filenames, file_metadata = [], [], [], [], []
         for agg, diag, _, bank_ovf, idxs in done:
             for b, i in enumerate(idxs):
-                if i in self._failed_idx:   # failed on the batch's re-load
-                    continue
                 if bank_ovf is not None and bank_ovf[b]:
                     # a truncated diagram on ANY column (possibly a union
                     # column outside `ovf`): the row cannot serve the
@@ -559,7 +493,7 @@ class StudyRunner:
                     # a USED window overflowed
                     bank_slot.pop(i, None)
                 X_rows.append(features_to_row(agg[b]))
-                fn, subj, cond = self.ds.index[i]
+                fn, subj, cond = self.store.index[i]
                 y.append(0 if cond == "slow" else 1)
                 subjects.append(subj)
                 filenames.append(fn)
@@ -605,7 +539,7 @@ class StudyRunner:
         [row0, row0 + len(idxs)) of the stage's sample tables."""
         B = len(idxs)
         use_idx, use_mask = window_sample(tables, row0, B, K, K, self.device)
-        eeg, _, ns_e, _, _ = self._load_batch(idxs)
+        eeg, _, ns_e, _, _ = self.store.batch(idxs)
         dist, _ = programs.eeg_window_distances(
             eeg, self._dev(ns_e), self._dev(use_idx), self.cfg, self.n_win_max)
         n = dist.shape[-1]
@@ -645,7 +579,7 @@ class StudyRunner:
         the EEG side — the reference's paired selection
         (tda_eeg_audio_comparison.py:72-80)."""
         B = len(idxs)
-        eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+        eeg, audio, ns_e, ns_a, metas = self.store.batch(idxs)
         cfg = self.cfg
         n_win_e = programs.window_count_program(
             self._dev(ns_e), cfg.win_samples, cfg.step_samples, eeg.shape[-1])
@@ -663,7 +597,7 @@ class StudyRunner:
         side subsamples over its own window count.  Nothing is paired here;
         `_control_rows_exact` pairs positionally after compaction."""
         B = len(idxs)
-        eeg, audio, ns_e, ns_a, metas = self._load_batch(idxs)
+        eeg, audio, ns_e, ns_a, metas = self.store.batch(idxs)
         cfg = self.cfg
         n_win_e = np.maximum(
             (np.minimum(ns_e, eeg.shape[-1]) - cfg.win_samples)
@@ -811,15 +745,15 @@ class StudyRunner:
         """(subject, condition) → index of the subject's FIRST
         opposite-condition recording (matched_vs_mismatched.py:117-121)."""
         by_subj = defaultdict(lambda: defaultdict(list))
-        for i in range(len(self.ds)):
-            fn, subj, cond = self.ds.index[i]
+        for i in range(len(self.store)):
+            fn, subj, cond = self.store.index[i]
             by_subj[subj][cond].append(i)
         mis = {}
         for subj, conds in by_subj.items():
             for cond, opp in (("slow", "fast"), ("fast", "slow")):
                 if conds[opp]:
                     mis[(subj, cond)] = min(conds[opp],
-                                            key=lambda i: self.ds.index[i][0])
+                                            key=lambda i: self.store.index[i][0])
         return mis
 
     def _mismatch_diagram_cache(self, mis_idx):
@@ -837,7 +771,7 @@ class StudyRunner:
         slot = {}
         for b0 in range(0, len(mis_list), self.eeg_batch):
             batch = mis_list[b0:b0 + self.eeg_batch]
-            _, audio_b, _, ns_a_b, metas_b = self._load_batch(batch)
+            _, audio_b, _, ns_a_b, metas_b = self.store.batch(batch)
             for dev, idxs, sl in self._shards(batch):
                 out = programs.audio_h1_program(
                     audio_b[sl].to(dev, non_blocking=True), ns_a_b[sl], self.cfg,
@@ -880,24 +814,15 @@ class StudyRunner:
             bk["batches"] = None      # free the un-flattened copies
         return bk["flat"]
 
-    def _audio_length(self, i: int) -> int:
-        """True audio sample count (host side, capped at the pad)."""
-        if self.store is not None:
-            return int(min(self.store.ns_a[i], self.t_audio_pad))
-        return min(len(self._safe_load(i)["audio"]), self.t_audio_pad)
-
     def _audio_window_count(self, i: int) -> int:
         """Window count of recording i's audio envelope at the EEG rate."""
         win, step = self.cfg.win_samples, self.cfg.step_samples
-        n_rs = int(resample_n_out(self._audio_length(i), self.cfg.fs_eeg,
-                                  self.cfg.fs_audio))
+        n_rs = int(resample_n_out(int(min(self.store.ns_a[i], self.t_audio_pad)),
+                                  self.cfg.fs_eeg, self.cfg.fs_audio))
         return max((n_rs - win) // step + 1, 0)
 
     def _audio_window_counts(self, idxs) -> np.ndarray:
-        """`_audio_window_count` of recordings idxs: from the store's
-        lengths at once, a host dataset's recording by recording."""
-        if self.store is None:
-            return np.array([self._audio_window_count(i) for i in idxs], np.int64)
+        """`_audio_window_count` of recordings idxs, at once."""
         win, step = self.cfg.win_samples, self.cfg.step_samples
         n_a = np.minimum(self.store.ns_a[np.asarray(idxs, np.int64)], self.t_audio_pad)
         n_rs = resample_n_out(n_a, self.cfg.fs_eeg, self.cfg.fs_audio)
@@ -910,11 +835,11 @@ class StudyRunner:
         a partner), has_mis (N,), mis_n_win (N,), mis_degen (N, 5, K_CMP);
         with the features stage's bank gidx (N, 5·K_CMP), the flat bank
         indices of each one's paired windows (0 where it has no bank row),
-        and in_bank (N,); with a store ns_e and ns_a (N,), its lengths."""
-        N, zero_slot = len(self.ds), bank["b"].shape[0] - 1
+        and in_bank (N,); ns_e and ns_a (N,), the store's lengths."""
+        N, zero_slot = len(self.store), bank["b"].shape[0] - 1
         slots = np.full(N, zero_slot, np.int64)
         for i in range(N):
-            fn, subj, cond = self.ds.index[i]
+            fn, subj, cond = self.store.index[i]
             u = mis_slot.get(mis_idx.get((subj, cond)))
             if u is not None:
                 slots[i] = u
@@ -924,7 +849,7 @@ class StudyRunner:
         mis_n_win[has_mis] = bank["n_win"][slots[has_mis]]
         mis_degen[has_mis] = bank["degen"][slots[has_mis]]
         plan = dict(slots=slots, has_mis=has_mis, mis_n_win=mis_n_win,
-                    mis_degen=mis_degen)
+                    mis_degen=mis_degen, ns_e=self.store.ns_e, ns_a=self.store.ns_a)
         if self._eeg_bank is not None:
             bk = self._eeg_bank
             rows = np.array([bk["slot"].get(i, -1) for i in range(N)], np.int64)
@@ -934,8 +859,6 @@ class StudyRunner:
                     + cols)
             plan["gidx"] = np.where(plan["in_bank"][:, None, None], gidx,
                                     0).reshape(N, -1)
-        if self.store is not None:
-            plan["ns_e"], plan["ns_a"] = self.store.ns_e, self.store.ns_a
         return plan
 
     def _bank_serves(self, plan, idxs, metas) -> bool:
@@ -950,7 +873,7 @@ class StudyRunner:
     def _plan_on(plan, dev):
         """The plan's arrays the programs read, on `dev` in one copy
         (`runtime.to_device`, no host wait): a dict of device views."""
-        keys = [k for k in ("ns_e", "ns_a", "slots", "mis_n_win") if k in plan]
+        keys = ("ns_e", "ns_a", "slots", "mis_n_win")
         parts = [plan[k] for k in keys] + [plan["mis_degen"].reshape(-1)]
         if "gidx" in plan:
             parts.append(plan["gidx"].reshape(-1))
@@ -995,7 +918,7 @@ class StudyRunner:
         on_dev = {}
         self._bank_served = self._bank_fallback = 0
         t0 = time.time()
-        all_idx = list(range(len(self.ds)))
+        all_idx = list(range(len(self.store)))
         batches = []        # (packed, idxs, metas, has_mis, mis_degen)
         with logged_span("comparison_dispatch", self.device,
                          items=len(all_idx) * N_BANDS * K_CMP,
@@ -1004,7 +927,7 @@ class StudyRunner:
             plan = self._comparison_plan(mis_idx, mis_slot, bank)
             for b0 in range(0, len(all_idx), self.eeg_batch):
                 idxs = all_idx[b0:b0 + self.eeg_batch]
-                eeg_b, audio_b, ns_e_b, ns_a_b, metas_b = self._load_batch(idxs)
+                eeg_b, audio_b, _, _, metas_b = self.store.batch(idxs)
                 served = self._bank_serves(plan, idxs, metas_b)
                 if self._eeg_bank is not None:
                     self._bank_served += served
@@ -1015,10 +938,7 @@ class StudyRunner:
                                        self._plan_on(plan, dev))
                     mis_h1, on = on_dev[dev]
                     rows = slice(b0 + sl.start, b0 + sl.stop)
-                    if self.store is None:      # a host dataset's lengths came with its batch
-                        ns_e, ns_a = ns_e_b[sl], ns_a_b[sl]
-                    else:
-                        ns_e, ns_a = on["ns_e"][rows], on["ns_a"][rows]
+                    ns_e, ns_a = on["ns_e"][rows], on["ns_a"][rows]
                     slots = on["slots"][rows]
                     mis_args = (tuple(x[slots].flatten(0, 1) for x in mis_h1),
                                 on["mis_n_win"][rows], on["mis_degen"][rows])
@@ -1101,7 +1021,7 @@ class StudyRunner:
 
     def _comparison(self, n_perm: int) -> dict:
         if not self._fused:
-            rows = self._staged_comparison_rows(list(range(len(self.ds))))
+            rows = self._staged_comparison_rows(list(range(len(self.store))))
             return self._comparison_stats(rows, n_perm)
         rows = [r for r in self._fused_rows() if r["n_windows"] > 0]
         ovf_keys = sorted({(r["filename"], r["condition"])
@@ -1112,7 +1032,7 @@ class StudyRunner:
                     print(f"  comparison: {len(ovf_keys)} overflow recordings → "
                           "exact redo")
                 idx_map = {(fn, cond): i for i, (fn, subj, cond)
-                           in enumerate(self.ds.index)}
+                           in enumerate(self.store.index)}
                 redo = {(r["filename"], r["condition"], r["band"]): r
                         for r in self._staged_comparison_rows(
                             [idx_map[k] for k in ovf_keys])}
@@ -1350,12 +1270,12 @@ class StudyRunner:
         span `control` holds the stage, the `control_*` spans its parts."""
         with logged_span("control", self.device) as log:
             by_subj = defaultdict(lambda: defaultdict(list))
-            for i in range(len(self.ds)):
-                fn, subj, cond = self.ds.index[i]
+            for i in range(len(self.store)):
+                fn, subj, cond = self.store.index[i]
                 by_subj[subj][cond].append(i)
             for conds in by_subj.values():
                 for lst in conds.values():
-                    lst.sort(key=lambda i: self.ds.index[i][0])
+                    lst.sort(key=lambda i: self.store.index[i][0])
             common = sorted(s for s in by_subj
                             if by_subj[s]["slow"] and by_subj[s]["fast"])
             mis_idx = {}
@@ -1393,10 +1313,10 @@ class StudyRunner:
         deviants, rows = [], []
         with span("control_deviant_scan", self.device):
             for i in all_idx:
-                fn, subj, cond = self.ds.index[i]
-                n_e, failed = self._rec_length(i)
-                if failed:
+                fn, subj, cond = self.store.index[i]
+                if i in self._failed_idx:
                     continue
+                n_e = min(int(self.store.ns_e[i]), self.t_eeg_pad)
                 n_win_e = max((n_e - win) // step + 1, 0)
                 n_win_a = self._audio_window_count(i)
                 brows = [fmap.get((fn, cond, b)) for b in BAND_NAMES]
@@ -1421,7 +1341,7 @@ class StudyRunner:
                 print(f"  control: {len(deviants)} deviant recordings → "
                       "exact per-side pairing redo")
             tlog.LOGGER.event("control_exact_redo", n=len(deviants))
-            keys = {(self.ds.index[i][1], self.ds.index[i][2]) for i in deviants}
+            keys = {(self.store.index[i][1], self.store.index[i][2]) for i in deviants}
             with span("control_mismatch_cache", self.device):
                 mis_cache = self._mismatch_own_cache(
                     sorted({mis_idx[k] for k in keys if k in mis_idx}))
@@ -1510,7 +1430,7 @@ class StudyRunner:
         figures = _figures_module()
         if figures is None:
             return []
-        d = self._comparison_diagrams(list(range(min(self.eeg_batch, len(self.ds)))))
+        d = self._comparison_diagrams(list(range(min(self.eeg_batch, len(self.store)))))
         K = d["shape"][2]
 
         def dgm(out, flat):

@@ -1,7 +1,7 @@
-"""The port's exact host engine: ctypes binding of `csrc/rips_host.cpp`
-(Rips H0 + H1 persistence) and `csrc/wasserstein_host.cpp` (persim's exact
-diagram Wasserstein), compiled together with g++ at first use into the build
-directory.
+"""The port's exact host engine: `csrc/rips_host.cpp` (Rips H0 + H1
+persistence) and `csrc/wasserstein_host.cpp` (persim's exact diagram
+Wasserstein), compiled together with the host's C++ compiler at first use
+and bound to `SIGNATURES` by `ops.cuda_build.load`.
 
 Its roles: recompute, without any arena or step budget, the windows whose
 reduction the CUDA kernel (or, for CPU tensors, the plain reduction) flagged
@@ -14,66 +14,30 @@ cores, as in the reference package; neither is a kernel."""
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
+from ..ops import cuda_build
+
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "rips_host.cpp"
 SRCS = (SRC, SRC.with_name("wasserstein_host.cpp"))
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_native"
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
-
-_lock = threading.Lock()
-_lib = None
+_fp, _ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+_I, _F = ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "rips_host_batch": ([_fp, _I, _I, _F, _I, _I, _fp, _fp, _ip, _ip, _fp, _ip, _ip], None),
+    "wasserstein_host_batch": ([_fp, _fp, _ip, _I, _fp, _fp, _ip, _I, _I, _I, _fp], None)}
 
 
 def library_path() -> Path:
     """Where the library of the current sources is (or will be) built."""
-    h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    for src in SRCS:
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"librips_host_{h.hexdigest()[:12]}.so"
+    return cuda_build.library_path(SRCS)
 
 
 def build() -> Path:
     """Compile the engine once per source content; returns the .so."""
-    so = library_path()
-    if so.exists():
-        return so
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError(f"no C++ compiler found to build {SRCS}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SRCS)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"{cxx} failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
-            lib.rips_host_batch.argtypes = [
-                fp, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                ctypes.c_int, fp, fp, ip, ip, fp, ip, ip]
-            lib.rips_host_batch.restype = None
-            lib.wasserstein_host_batch.argtypes = [
-                fp, fp, ip, ctypes.c_int, fp, fp, ip, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, fp]
-            lib.wasserstein_host_batch.restype = None
-            _lib = lib
-        return _lib
+    return cuda_build.build(SRCS)
 
 
 def rips_persistence_batch(dm, thresh: float = 2.0, max_bars: int = 256,
@@ -98,14 +62,13 @@ def rips_persistence_batch(dm, thresh: float = 2.0, max_bars: int = 256,
     h1_d = np.zeros((B, max_bars), np.float32)
     h0_d = np.zeros((B, n - 1), np.float32)
     counts = {k: np.zeros(B, np.int32) for k in ("h1", "ess", "h0", "tree")}
-    fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
     if B:
-        _load().rips_host_batch(
-            dm.ctypes.data_as(fp), B, n, thresh, max_bars, n_threads,
-            h1_b.ctypes.data_as(fp), h1_d.ctypes.data_as(fp),
-            counts["h1"].ctypes.data_as(ip), counts["ess"].ctypes.data_as(ip),
-            h0_d.ctypes.data_as(fp), counts["h0"].ctypes.data_as(ip),
-            counts["tree"].ctypes.data_as(ip))
+        cuda_build.load(SRCS, SIGNATURES).rips_host_batch(
+            dm.ctypes.data_as(_fp), B, n, thresh, max_bars, n_threads,
+            h1_b.ctypes.data_as(_fp), h1_d.ctypes.data_as(_fp),
+            counts["h1"].ctypes.data_as(_ip), counts["ess"].ctypes.data_as(_ip),
+            h0_d.ctypes.data_as(_fp), counts["h0"].ctypes.data_as(_ip),
+            counts["tree"].ctypes.data_as(_ip))
     mask = np.arange(max_bars)[None, :] < counts["h1"][:, None]
     h0_mask = np.arange(n - 1)[None, :] < counts["h0"][:, None]
     return dict(births=np.where(mask, h1_b, 0.0).astype(np.float32),
@@ -141,11 +104,10 @@ def wasserstein_batch(b1, d1, m1, b2, d2, m2,
     out = np.zeros(N, np.float32)
     if n_threads is None:
         n_threads = min(os.cpu_count() or 1, 16)
-    fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
     if N:
-        _load().wasserstein_host_batch(
-            b1c.ctypes.data_as(fp), d1c.ctypes.data_as(fp), c1.ctypes.data_as(ip),
-            b1c.shape[1], b2c.ctypes.data_as(fp), d2c.ctypes.data_as(fp),
-            c2.ctypes.data_as(ip), b2c.shape[1], N, n_threads,
-            out.ctypes.data_as(fp))
+        cuda_build.load(SRCS, SIGNATURES).wasserstein_host_batch(
+            b1c.ctypes.data_as(_fp), d1c.ctypes.data_as(_fp), c1.ctypes.data_as(_ip),
+            b1c.shape[1], b2c.ctypes.data_as(_fp), d2c.ctypes.data_as(_fp),
+            c2.ctypes.data_as(_ip), b2c.shape[1], N, n_threads,
+            out.ctypes.data_as(_fp))
     return out

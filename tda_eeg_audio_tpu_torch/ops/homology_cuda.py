@@ -25,10 +25,10 @@ PyTorch (`homology_h1`).  The plain PyTorch phase 1 and reduction
 kernels (or raises) for a CUDA tensor — there is no fallback.
 
 The kernel is compiled by `nvcc` at first use from the source in the
-checkout into `build/torch_kernels/` (`cuda_build`) and bound with ctypes.
-A second, instrumented build of the same source (`-DH1_PROFILE`, a library
-of its own) serves `reduce_cuda_profiled` only; no entry point of the port
-loads it.
+checkout and bound to `SIGNATURES` by `cuda_build.load`.  A second,
+instrumented build of the same source (`-DH1_PROFILE`, a library of its
+own) serves `reduce_cuda_profiled` only; no entry point of the port loads
+it.
 """
 
 from __future__ import annotations
@@ -45,11 +45,15 @@ from .homology_h1 import (_extract_bars, h1_diagrams_plain, map_window_chunks,
 from .phase1_cuda import phase1_cuda
 
 __all__ = ["h1_diagrams_cuda", "h1_diagrams_plain", "reduce_cuda",
-           "reduce_cuda_profiled", "build", "kernel_shape",
+           "reduce_cuda_profiled", "build", "kernel_shape", "check_layout",
            "kernel_plan", "phase1_chunk", "PROFILE_SLOTS"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "h1_reduce.cu"
 PROFILE_FLAGS = ("-DH1_PROFILE",)
+P, I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"h1_reduce_launch": ([P] * 12 + [I] * 8 + [P], I),
+              "h1_reduce_layout": ([I, I, I, P], I)}
+LAYOUT_FIELDS = ("threads", "smem_bytes", "registers", "local_bytes", "occupancy")
 ARENA_BYTES = 1 << 32       # stored-column arena of one launch, at most
 PHASE1_BYTES = 1 << 34      # phase 1's transient tensors of one chunk, at most
 SMEM_MAX = 232_448          # dynamic shared memory a block can have (sm_90)
@@ -63,8 +67,6 @@ PROFILE_SLOTS = ("setup", "pivot", "pivot_barrier", "claim", "cobd_xor",
                  "extent_words", "nnz_words", "prepare", "finish_scan",
                  "finish_move", "finish_barrier")
 PROFILE_TICKS = PROFILE_SLOTS[:8] + PROFILE_SLOTS[16:]
-
-_libs = {}
 
 
 def _up16(x: int) -> int:
@@ -121,48 +123,33 @@ def phase1_chunk(n: int) -> int:
     return max(1, PHASE1_BYTES // (8 * m * n))
 
 
-def build(profile: bool = False, verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    flags = PROFILE_FLAGS if profile else ()
-    return cuda_build.build_libraries([(SRC, flags)], verbose)[0][0]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `reduce_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
-def _load(profile: bool = False):
-    if profile not in _libs:
-        lib = ctypes.CDLL(str(build(profile)))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.h1_reduce_launch.argtypes = [P] * 12 + [I] * 8 + [P]
-        lib.h1_reduce_launch.restype = I
-        lib.h1_reduce_blocks_per_sm.argtypes = [I, I]
-        lib.h1_reduce_blocks_per_sm.restype = I
-        lib.h1_reduce_smem_bytes.argtypes = [I, I]
-        lib.h1_reduce_smem_bytes.restype = I
-        _libs[profile] = lib
-    return _libs[profile]
+@cuda_build.once_per_card
+def check_layout(lib, n: int) -> dict:
+    """What `lib` reports of the kernel for n-point windows against
+    `kernel_shape(n)`: threads and shared bytes must be the plan's and an
+    SM must hold a block (`cuda_build.check_layout`).  Raises on any
+    disagreement."""
+    shape = kernel_shape(n)
+    return cuda_build.check_layout(lib, "h1_reduce_layout", LAYOUT_FIELDS, shape,
+                                   ("threads", "smem_bytes"), SRC, n, shape["W"],
+                                   shape["threads"])
 
 
-def blocks_per_sm(n: int, profile: bool = False) -> int:
-    """Blocks of `kernel_shape(n)` one SM of the current card holds, from
-    the library (asked once per card); also checks that the kernel lays out
-    the bytes the plan reckons."""
-    return _blocks_per_sm(n, profile, torch.cuda.current_device())
+def blocks_per_sm(n: int, lib=None) -> int:
+    """Blocks of `kernel_shape(n)` one SM of the current card holds: the
+    occupancy `lib` (default: the main build) reports, checked once per
+    card."""
+    lib = lib or cuda_build.load(SRC, SIGNATURES)
+    return check_layout(lib, n, card=torch.cuda.current_device())["occupancy"]
 
 
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(n: int, profile: bool, device: int) -> int:
-    lib, shape = _load(profile), kernel_shape(n)
-    threads = shape["threads"]
-    if lib.h1_reduce_smem_bytes(n, shape["W"]) != shape["smem_bytes"]:
-        raise RuntimeError("kernel_shape and csrc/h1_reduce.cu disagree on the "
-                           f"shared-memory layout at n={n}")
-    nb = lib.h1_reduce_blocks_per_sm(threads, shape["smem_bytes"])
-    if nb < 1:
-        raise RuntimeError(f"no block of {threads} threads, "
-                           f"{shape['smem_bytes']} B fits an SM (n={n})")
-    return nb
-
-
-def _reduce(ins, n: int, step_budget: int, profile: bool):
+def _reduce(ins, n: int, step_budget: int, flags=()):
     rank_mat, iu_r, ju_r, app_v, na_list, m_cx = ins
     B, na = na_list.shape
     m = iu_r.shape[1]
@@ -180,19 +167,21 @@ def _reduce(ins, n: int, step_budget: int, profile: bool):
         raise ValueError(f"reduce_cuda: na={na} > {MAX_NA}")
     pair = torch.empty((B, na), dtype=torch.int32, device=dev)
     stepinfo = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    profile = bool(flags)
     prof = stamps = None
     if profile:
         prof = torch.zeros((B, len(PROFILE_SLOTS)), dtype=torch.int64, device=dev)
         stamps = torch.zeros((B, 3), dtype=torch.int64, device=dev)
     if B > 0:
+        lib = cuda_build.load(SRC, SIGNATURES, flags)
         with torch.cuda.device(dev):
             plan = kernel_plan(
-                n, na, B, blocks_per_sm(n, profile),
+                n, na, B, blocks_per_sm(n, lib),
                 torch.cuda.get_device_properties(dev).multi_processor_count)
             counter = torch.zeros(1, dtype=torch.int32, device=dev)
             arena = torch.empty(plan["arena_bytes"] // 8, dtype=torch.int64,
                                 device=dev)
-            rc = _load(profile).h1_reduce_launch(
+            rc = lib.h1_reduce_launch(
                 *(t.data_ptr() for t in ins), counter.data_ptr(), arena.data_ptr(), pair.data_ptr(),
                 stepinfo.data_ptr(), prof.data_ptr() if profile else None,
                 stamps.data_ptr() if profile else None, B, n, m, na, plan["W"],
@@ -212,8 +201,7 @@ def reduce_cuda(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
 
     Same contract as `homology_h1.reduce_plain`: returns (pair_key (B, na)
     int32, steps (B,) int32, overflow (B,) bool)."""
-    return _reduce((rank_mat, iu_r, ju_r, app_v, na_list, m_cx), n, step_budget,
-                   profile=False)[:3]
+    return _reduce((rank_mat, iu_r, ju_r, app_v, na_list, m_cx), n, step_budget)[:3]
 
 
 def reduce_cuda_profiled(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
@@ -223,7 +211,7 @@ def reduce_cuda_profiled(rank_mat, iu_r, ju_r, app_v, na_list, m_cx, n: int,
     start and end (globaltimer, ns) and the SM it ran on.  For measurement
     scripts; counts no launch."""
     return _reduce((rank_mat, iu_r, ju_r, app_v, na_list, m_cx), n, step_budget,
-                   profile=True)
+                   PROFILE_FLAGS)
 
 
 def h1_diagrams_cuda(dm: torch.Tensor, n_pts=None, *, n: int, thresh: float,

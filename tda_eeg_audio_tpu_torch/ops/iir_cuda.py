@@ -40,7 +40,8 @@ memory (`staging` "device"), the same kernel.
 recurrence (`signal.bandpass_bank_iir_plain`, the specification), a CUDA
 tensor comes here and launches the kernel or raises — there is no fallback.
 `kernel_plan` and `chunk_operators` are the host side's decisions, pure
-functions.
+functions; the library reports what it makes of a plan, checked once per
+card and plan (`check_layout`).
 """
 
 from __future__ import annotations
@@ -54,9 +55,17 @@ import torch
 from . import cuda_build
 
 __all__ = ["sosfiltfilt_bank_cuda", "kernel_plan", "chunk_operators",
-           "library_layout", "build", "SRC"]
+           "check_layout", "build", "SRC", "SIGNATURES"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "sosfiltfilt.cu"
+P, I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"sosfiltfilt_launch": ([P] * 7 + [I] * 9 + [P], I),
+              "sosfiltfilt_layout": ([I, I, I, I, P], I)}
+# what the library makes of a plan: blocks an SM (occupancy calculator),
+# registers and spill bytes a thread, static shared bytes, the kernel's
+# thread limit
+LAYOUT_FIELDS = ("occupancy", "registers", "local_bytes", "static_smem_bytes",
+                 "max_threads")
 THREADS = 256       # chunks (threads) a chain: C ≈ 23 samples at T_pad 5800
 THREAD_CHOICES = (32, 64, 128, 256, 512, 1024)
 MAX_SECTIONS = 8    # the kernel's instantiations: S = 1 … 8 sections
@@ -70,7 +79,6 @@ STATIC_SMEM = 2 * 32 * 2 * 8
 MAX_THREADS_SM = 2_048
 MAX_BLOCKS_SM = 32
 
-_libs = {}
 _consts = {}
 
 
@@ -135,24 +143,10 @@ def chunk_operators(sos_bank, chunk: int) -> np.ndarray:
                     axis=-3).astype(np.float64)
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    return cuda_build.build_libraries([(SRC, ())], verbose)[0][0]
-
-
-def bind(lib):
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sosfiltfilt_launch.argtypes = [P] * 7 + [I] * 9 + [P]
-    lib.sosfiltfilt_launch.restype = I
-    lib.sosfiltfilt_layout.argtypes = [I, I, I, I, P]
-    lib.sosfiltfilt_layout.restype = I
-    return lib
-
-
-def _load():
-    if "lib" not in _libs:
-        _libs["lib"] = bind(ctypes.CDLL(str(build())))
-    return _libs["lib"]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `sosfiltfilt_bank_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
 def _constants(sos: np.ndarray, zi: np.ndarray, chunk: int, dev) -> tuple:
@@ -166,18 +160,16 @@ def _constants(sos: np.ndarray, zi: np.ndarray, chunk: int, dev) -> tuple:
     return _consts[key]
 
 
-def library_layout(plan: dict, n_sections: int, lib=None) -> dict:
-    """What the library makes of a plan on the current card: blocks an SM
-    (occupancy calculator), registers and spill bytes a thread, static
-    shared bytes."""
-    rep = (ctypes.c_int * 5)()
-    rc = (lib or _load()).sosfiltfilt_layout(
-        n_sections, plan["threads"], plan["shared_bytes"],
-        int(plan["staging"] == "device"), rep)
-    if rc != 0:
-        raise RuntimeError(f"sosfiltfilt_layout failed: cudaError {rc}")
-    return dict(blocks_per_sm=rep[0], registers=rep[1], spill_bytes=rep[2],
-                static_shared_bytes=rep[3], max_threads=rep[4])
+@cuda_build.once_per_card
+def check_layout(lib, n_sections: int, threads: int, shared_bytes: int,
+                 staged: bool) -> dict:
+    """What `lib` makes of a plan's block (`kernel_plan`'s threads,
+    shared_bytes and staging "device") at n_sections sections
+    (`LAYOUT_FIELDS`): an SM must hold a block within its registers
+    (`cuda_build.check_layout`).  Raises otherwise; returns the report."""
+    return cuda_build.check_layout(lib, "sosfiltfilt_layout", LAYOUT_FIELDS,
+                                   dict(threads=threads), (), SRC, n_sections, threads,
+                                   shared_bytes, int(staged))
 
 
 def sosfiltfilt_bank_cuda(x: torch.Tensor, n, sos_bank, zi_bank,
@@ -213,8 +205,11 @@ def sosfiltfilt_bank_cuda(x: torch.Tensor, n, sos_bank, zi_bank,
     sos_t, zi_t, pw = _constants(sos, zi, plan["chunk"], dev)
     scratch = (torch.empty(plan["scratch_bytes"] // 8, dtype=torch.float64, device=dev)
                if plan["scratch_bytes"] else None)
+    lib = lib or cuda_build.load(SRC, SIGNATURES)
     with torch.cuda.device(dev):
-        rc = (lib or _load()).sosfiltfilt_launch(
+        check_layout(lib, S, plan["threads"], plan["shared_bytes"],
+                     plan["staging"] == "device", card=torch.cuda.current_device())
+        rc = lib.sosfiltfilt_launch(
             x.data_ptr(), nlen.data_ptr(), sos_t.data_ptr(), zi_t.data_ptr(),
             pw.data_ptr(), scratch.data_ptr() if scratch is not None else None,
             out.data_ptr(), n_series, nb, S, T, edge, plan["chunk"],

@@ -19,14 +19,13 @@ vertices until the first hit, one block per window.  It returns
 never reaches it (the plain path runs `_phase1`), and a CUDA tensor launches
 the kernel or raises — there is no fallback.  `kernel_plan` is the host
 side's one decision, a pure function; the library reports its own layout at
-load.  A second, instrumented build (`-DH1_PHASE1_PROFILE`, a library of its
-own) serves `phase1_cuda_profiled` only.
+load (`check_layout`).  A second, instrumented build (`-DH1_PHASE1_PROFILE`,
+a library of its own) serves `phase1_cuda_profiled` only.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -34,10 +33,15 @@ import torch
 from . import cuda_build
 
 __all__ = ["phase1_cuda", "phase1_cuda_profiled", "kernel_plan", "sieve_compares",
-           "build", "SRC", "PROFILE_FLAGS", "PROFILE_SLOTS"]
+           "build", "check_layout", "run", "SRC", "SIGNATURES", "PROFILE_FLAGS",
+           "PROFILE_SLOTS"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "h1_phase1.cu"
 PROFILE_FLAGS = ("-DH1_PHASE1_PROFILE",)
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {"h1_phase1_launch": ([P, P] + [I] * 3 + [F] + [I] * 3 + [P] * 15, I),
+              "h1_phase1_layout": ([I, I, P], I)}
+LAYOUT_FIELDS = ("threads", "smem_bytes", "registers", "local_bytes", "occupancy")
 # the instrumented build's int64 slots per window: clock64 ticks of thread 0
 # per part (each part closed by a barrier), the total, then counters
 PROFILE_SLOTS = ("sort", "ranks", "radius", "write", "forest", "sieve", "h0",
@@ -48,8 +52,6 @@ MAX_N = 128                 # ranks fit uint16 and vertices uint8
 MAX_NA = 128
 MAX_WARPS = 32
 SEG = 16                    # sort keys a thread holds in registers
-
-_libs = {}
 
 
 def _up16(x: int) -> int:
@@ -97,45 +99,29 @@ def sieve_compares(vstar_r: torch.Tensor, n: int) -> torch.Tensor:
     return 2 * torch.where(v >= 0, v + 1, n).sum(dim=-1)
 
 
-def build(profile: bool = False, verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content and flags) and return the
-    .so; profile=True is the instrumented build (`-DH1_PHASE1_PROFILE`)."""
-    flags = PROFILE_FLAGS if profile else ()
-    return cuda_build.build_libraries([(SRC, flags)], verbose)[0][0]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `phase1_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
-def _load(profile: bool = False):
-    if profile not in _libs:
-        lib = ctypes.CDLL(str(build(profile)))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.h1_phase1_launch.argtypes = [P, P] + [I] * 3 + [F] + [I] * 3 + [P] * 15
-        lib.h1_phase1_launch.restype = I
-        lib.h1_phase1_smem_bytes.argtypes = [I]
-        lib.h1_phase1_smem_bytes.restype = I
-        lib.h1_phase1_blocks_per_sm.argtypes = [I, I]
-        lib.h1_phase1_blocks_per_sm.restype = I
-        _libs[profile] = lib
-    return _libs[profile]
+@cuda_build.once_per_card
+def check_layout(lib, n: int) -> dict:
+    """What `lib` reports of the kernel for n-point windows against
+    `kernel_plan(n, ·)`: threads and shared bytes must be the plan's and an
+    SM must hold a block (`cuda_build.check_layout`).  Raises on any
+    disagreement."""
+    plan = kernel_plan(n, 1)
+    return cuda_build.check_layout(lib, "h1_phase1_layout", LAYOUT_FIELDS, plan,
+                                   ("threads", "smem_bytes"), SRC, n, plan["threads"])
 
 
-def blocks_per_sm(n: int, profile: bool = False) -> int:
+def blocks_per_sm(n: int, lib=None) -> int:
     """Blocks of `kernel_plan(n, ·)`'s shape one SM of the current card
-    holds, from the library (asked once per card); also checks that the
-    kernel lays out the bytes the plan reckons."""
-    return _blocks_per_sm(n, profile, torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(n: int, profile: bool, device: int) -> int:
-    lib, plan = _load(profile), kernel_plan(n, 1)
-    if lib.h1_phase1_smem_bytes(n) != plan["smem_bytes"]:
-        raise RuntimeError("kernel_plan and csrc/h1_phase1.cu disagree on the "
-                           f"shared-memory layout at n={n}")
-    nb = lib.h1_phase1_blocks_per_sm(n, plan["threads"])
-    if nb < 1:
-        raise RuntimeError(f"no block of {plan['threads']} threads, "
-                           f"{plan['smem_bytes']} B fits an SM (n={n})")
-    return nb
+    holds: the occupancy `lib` (default: the main build) reports, checked
+    once per card."""
+    lib = lib or cuda_build.load(SRC, SIGNATURES)
+    return check_layout(lib, n, card=torch.cuda.current_device())["occupancy"]
 
 
 def _check(dm, n: int, n_pts):
@@ -155,11 +141,12 @@ def _check(dm, n: int, n_pts):
         raise ValueError(f"phase1_cuda: dm must be on a CUDA device, not {dm.device}")
 
 
-def _launch(dm, n_pts, n: int, thresh: float, na_max: int,
-            profile: bool = False) -> dict:
-    """One launch of the kernel; the dict of `_phase1` (with profile=True
-    also `prof` (B, len(PROFILE_SLOTS)) and `stamps` (B, 3) int64: each
-    window's start and end (globaltimer, ns) and SM)."""
+def run(lib, dm, n_pts, n: int, thresh: float, na_max: int,
+        profile: bool = False) -> dict:
+    """One launch of `lib`'s kernel on checked inputs; the dict of
+    `_phase1` (with profile=True, for an instrumented build, also `prof`
+    (B, len(PROFILE_SLOTS)) and `stamps` (B, 3) int64: each window's start
+    and end (globaltimer, ns) and SM)."""
     plan = kernel_plan(n, na_max)
     B, m, na_eff = dm.shape[0], plan["m"], plan["na_eff"]
     dev = dm.device
@@ -183,8 +170,8 @@ def _launch(dm, n_pts, n: int, thresh: float, na_max: int,
                               or n_pts.dtype not in (torch.int32, torch.int64)):
         n_pts = n_pts.to(device=dev, dtype=torch.int64).contiguous()
     with torch.cuda.device(dev):
-        blocks_per_sm(n, profile)
-        rc = _load(profile).h1_phase1_launch(
+        blocks_per_sm(n, lib)
+        rc = lib.h1_phase1_launch(
             dm.data_ptr(), None if n_pts is None else n_pts.data_ptr(),
             int(n_pts is not None and n_pts.dtype == torch.int64), B, n, thresh,
             na_eff, na_max, plan["threads"],
@@ -197,8 +184,6 @@ def _launch(dm, n_pts, n: int, thresh: float, na_max: int,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"h1_phase1_launch failed: cudaError {rc}")
-    if not profile:
-        phase1_cuda.launches += 1
     return out
 
 
@@ -213,16 +198,20 @@ def phase1_cuda(dm: torch.Tensor, n: int, thresh: float, na_max: int,
     dict as `_phase1` (keys, shapes, dtypes and bits).  Raises for anything
     else, a CPU tensor included."""
     _check(dm, n, n_pts)
-    return _launch(dm, n_pts, n, thresh, na_max)
+    out = run(cuda_build.load(SRC, SIGNATURES), dm, n_pts, n, thresh, na_max)
+    if dm.shape[0]:
+        phase1_cuda.launches += 1
+    return out
 
 
 def phase1_cuda_profiled(dm: torch.Tensor, n: int, thresh: float, na_max: int,
                          n_pts=None) -> dict:
     """`phase1_cuda` through the instrumented build: the same dict plus
-    `prof` and `stamps` (see `_launch`).  For measurement scripts; counts
-    no launch."""
+    `prof` and `stamps` (see `run`).  For measurement scripts; counts no
+    launch."""
     _check(dm, n, n_pts)
-    return _launch(dm, n_pts, n, thresh, na_max, profile=True)
+    return run(cuda_build.load(SRC, SIGNATURES, PROFILE_FLAGS), dm, n_pts, n, thresh,
+               na_max, profile=True)
 
 
 phase1_cuda.launches = 0

@@ -28,7 +28,6 @@ plan's.
 from __future__ import annotations
 
 import ctypes
-import functools
 import inspect
 from pathlib import Path
 
@@ -39,7 +38,7 @@ from . import cuda_build
 from .wasserstein import sinkhorn_cost
 
 __all__ = ["sinkhorn_log_cuda", "kernel_plan", "check_layout", "eps_ladder",
-           "build", "SRC", "MAX_K", "HALF_STEPS", "lanes", "table_pitch"]
+           "build", "SRC", "SIGNATURES", "MAX_K", "HALF_STEPS", "lanes", "table_pitch"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "sinkhorn_log.cu"
 THREADS = 256             # a block a pair: L lanes a row, then a column
@@ -64,8 +63,9 @@ HALF_STEPS = 2 * STEPS * ITERS    # logsumexp passes over the S × S entries a p
 SMEM_BYTES = -(-(8 * (4 * MAX_K + 6 * MAX_K + 3 + THREADS // 32) + 8) // 16) * 16 \
     + 8 * TABLE_DOUBLES
 LAYOUT_FIELDS = ("threads", "smem_bytes", "registers", "local_bytes", "occupancy")
-
-_libs = {}
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {"sinkhorn_log_launch": ([P, P, P, I, P, P, P, I, I, P, I, F, I, P, P], I),
+              "sinkhorn_log_layout": ([P], I)}
 
 
 def eps_ladder() -> np.ndarray:
@@ -109,20 +109,13 @@ def kernel_plan(n_pairs: int, K1: int, K2: int) -> dict:
                 max_entries_per_lane=-(-S // lanes(S)))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    return cuda_build.build_libraries([(SRC, ())], verbose)[0][0]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `sinkhorn_log_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
-def _load():
-    if "lib" not in _libs:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _libs["lib"] = cuda_build.load(SRC, {
-            "sinkhorn_log_launch": ([P, P, P, I, P, P, P, I, I, P, I, F, I, P, P], I),
-            "sinkhorn_log_layout": ([P], I)})
-    return _libs["lib"]
-
-
+@cuda_build.once_per_card
 def check_layout(lib) -> dict:
     """The library's report (`LAYOUT_FIELDS`) against the plan: threads and
     shared bytes must be the plan's, within the card's limits
@@ -133,12 +126,7 @@ def check_layout(lib) -> dict:
 
 def layout_report() -> dict:
     """`check_layout` of the library on the current card, once per card."""
-    return _layout_report(torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _layout_report(device: int) -> dict:
-    return check_layout(_load())
+    return check_layout(cuda_build.load(SRC, SIGNATURES), card=torch.cuda.current_device())
 
 
 def _check(args):
@@ -174,7 +162,7 @@ def sinkhorn_log_cuda(b1, d1, m1, b2, d2, m2) -> torch.Tensor:
     ladder = eps_ladder()
     with torch.cuda.device(dev):
         layout_report()
-        rc = _load().sinkhorn_log_launch(
+        rc = cuda_build.load(SRC, SIGNATURES).sinkhorn_log_launch(
             b1.data_ptr(), d1.data_ptr(), m1.data_ptr(), K1,
             b2.data_ptr(), d2.data_ptr(), m2.data_ptr(), K2, N,
             ladder.ctypes.data_as(ctypes.c_void_p), STEPS, EPS_LO, ITERS,

@@ -24,15 +24,14 @@ bars in and one float out per pair are far below.
 the plain version, a CUDA tensor comes here and launches the kernel or
 raises — there is no fallback.  `kernel_plan` is the host side's one
 decision, a pure function; the library reports its own layout at load and
-the launcher raises unless it is the plan's.  A second, instrumented build
-(`-DSINKHORN_PROFILE`, a library of its own) serves
+the launcher raises unless it is the plan's (`check_layout`).  A second,
+instrumented build (`-DSINKHORN_PROFILE`, a library of its own) serves
 `sinkhorn_tiered_cuda_profiled` only.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import numpy as np
@@ -42,11 +41,15 @@ from . import cuda_build
 from .wasserstein import ABSORB, EPS_HI, EPS_LO, ITERS, STEPS, W_TIERS
 
 __all__ = ["sinkhorn_tiered_cuda", "sinkhorn_tiered_cuda_profiled", "kernel_plan",
-           "class_shape", "pair_width", "build", "check_layout", "SRC", "WIDTHS",
-           "PROFILE_FLAGS", "PROFILE_SLOTS"]
+           "class_shape", "pair_width", "build", "check_layout", "run", "SRC",
+           "SIGNATURES", "WIDTHS", "PROFILE_FLAGS", "PROFILE_SLOTS"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "sinkhorn_tiered.cu"
 PROFILE_FLAGS = ("-DSINKHORN_PROFILE",)
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {"sinkhorn_tiered_launch": (
+                  [P, P, P, I, P, P, P, I, I, P, I, F, I, I, P, P, I, I, P, P, P], I),
+              "sinkhorn_tiered_layout": ([I, P], I)}
 # the instrumented build's int64 slots per pair: clock64 ticks of the pair
 # group's thread 0 per part (each part closed by a group barrier), the total
 PROFILE_SLOTS = ("setup", "dm", "rebuild", "row", "col", "final", "total")
@@ -66,8 +69,6 @@ LAYOUT_FIELDS = ("threads", "smem_bytes", "blocks_per_sm", "registers",
 # memory (the kernel's `Shape`s; float64 where it fits, float32 at S = 192)
 _TILES = {16: (8, 4, 8, 1, 2, 8, 8), 40: (8, 5, 16, 5, 1, 4, 8),
           80: (8, 10, 16, 10, 1, 1, 8), 96: (8, 12, 16, 12, 1, 1, 4)}
-
-_libs = {}
 
 
 def pair_width(count: int) -> int:
@@ -140,70 +141,33 @@ def eps_ladder() -> np.ndarray:
                      for s in range(STEPS)], np.float32)
 
 
-def build(profile: bool = False, verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content and flags) and return the
-    .so; profile=True is the instrumented build (`-DSINKHORN_PROFILE`)."""
-    flags = PROFILE_FLAGS if profile else ()
-    return cuda_build.build_libraries([(SRC, flags)], verbose)[0][0]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `sinkhorn_tiered_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
-def bind(lib):
-    """Set the C interface's argument types on a loaded library."""
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sinkhorn_tiered_launch.argtypes = (
-        [P, P, P, I, P, P, P, I, I, P, I, F, I, I, P, P, I, I, P, P, P])
-    lib.sinkhorn_tiered_launch.restype = I
-    lib.sinkhorn_tiered_layout.argtypes = [I, P]
-    lib.sinkhorn_tiered_layout.restype = I
-    return lib
-
-
-def _load(profile: bool = False):
-    if profile not in _libs:
-        _libs[profile] = bind(ctypes.CDLL(str(build(profile))))
-    return _libs[profile]
-
-
-def library_layout(lib, width: int) -> dict:
-    """What the library reports of one width class (`LAYOUT_FIELDS`)."""
-    out = (ctypes.c_int * len(LAYOUT_FIELDS))()
-    rc = lib.sinkhorn_tiered_layout(width, ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"sinkhorn_tiered_layout (width {width}) failed: cudaError {rc}")
-    return dict(zip(LAYOUT_FIELDS, out))
-
-
+@cuda_build.once_per_card
 def check_layout(lib) -> dict:
     """The library's report of every width class against `class_shape`:
     threads, shared bytes and blocks an SM must be the plan's, the card's
     occupancy calculator must hold the plan's blocks an SM (so the
     persistent grid is resident at once), and the registers must keep
-    within the plan's cap.  Raises on any disagreement; returns the reports
-    by width."""
+    within the plan's cap (`cuda_build.check_layout`).  Raises on any
+    disagreement; returns the reports by width."""
     reports = {}
     for w in WIDTHS:
-        rep, plan = library_layout(lib, w), class_shape(w)
-        bad = [k for k in ("threads", "smem_bytes", "blocks_per_sm") if rep[k] != plan[k]]
-        if rep["occupancy"] < plan["blocks_per_sm"]:
-            bad.append("occupancy")
-        if rep["registers"] > plan["reg_cap"]:
-            bad.append("registers")
-        if bad:
-            raise RuntimeError(f"kernel_plan and csrc/sinkhorn_tiered.cu disagree at "
-                               f"width {w} on {bad}: library {rep}, plan {plan}")
-        reports[w] = rep
+        c = class_shape(w)
+        reports[w] = cuda_build.check_layout(
+            lib, "sinkhorn_tiered_layout", LAYOUT_FIELDS,
+            dict(c, occupancy=c["blocks_per_sm"]), ("threads", "smem_bytes", "blocks_per_sm"),
+            SRC, w)
     return reports
 
 
-def layout_report(profile: bool = False) -> dict:
-    """`check_layout` of the (instrumented) library on the current card,
-    once per card."""
-    return _layout_report(profile, torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _layout_report(profile: bool, device: int) -> dict:
-    return check_layout(_load(profile))
+def layout_report() -> dict:
+    """`check_layout` of the library on the current card, once per card."""
+    return check_layout(cuda_build.load(SRC, SIGNATURES), card=torch.cuda.current_device())
 
 
 def _check(args):
@@ -264,7 +228,7 @@ def sinkhorn_tiered_cuda(b1, d1, m1, b2, d2, m2) -> torch.Tensor:
         return torch.empty(0, dtype=torch.float32, device=b1.device)
     with torch.cuda.device(b1.device):
         layout_report()
-    out = run(_load(), args)
+    out = run(cuda_build.load(SRC, SIGNATURES), args)
     sinkhorn_tiered_cuda.launches += launches_per_call(max(b1.shape[1], b2.shape[1]))
     return out
 
@@ -281,9 +245,10 @@ def sinkhorn_tiered_cuda_profiled(b1, d1, m1, b2, d2, m2):
     stamps = torch.zeros((N, 3), dtype=torch.int64, device=dev)
     if N == 0:
         return torch.empty(0, dtype=torch.float32, device=dev), prof, stamps
+    lib = cuda_build.load(SRC, SIGNATURES, PROFILE_FLAGS)
     with torch.cuda.device(dev):
-        layout_report(True)
-    return run(_load(True), args, prof, stamps), prof, stamps
+        check_layout(lib, card=torch.cuda.current_device())
+    return run(lib, args, prof, stamps), prof, stamps
 
 
 sinkhorn_tiered_cuda.launches = 0

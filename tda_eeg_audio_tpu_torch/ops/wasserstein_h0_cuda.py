@@ -30,7 +30,6 @@ plan's.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -38,7 +37,7 @@ import torch
 from . import cuda_build
 
 __all__ = ["wasserstein_h0_cuda", "kernel_plan", "check_layout", "build", "SRC",
-           "MAX_K", "scan_is_exact"]
+           "SIGNATURES", "MAX_K", "scan_is_exact"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "wasserstein_h0.cu"
 WARPS = 4                 # pairs a block, one warp each
@@ -51,8 +50,9 @@ SORT_KEYS = MAX_K // 32   # sort keys a lane
 SMEM_BYTES = WARPS * 4 * (2 * MAX_K + MAX_K + 1)
 LAYOUT_FIELDS = ("threads", "pairs_per_block", "smem_bytes", "registers",
                  "local_bytes", "occupancy")
-
-_libs = {}
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {"wasserstein_h0_launch": ([P, P, L, L, I, P, P, L, L, I, I, P, P], I),
+              "wasserstein_h0_layout": ([P], I)}
 
 
 def _network_steps(K: int) -> int:
@@ -92,20 +92,13 @@ def scan_is_exact(halves) -> bool:
     return int(e.max() - e.min()) <= 29 - (K2 - 1).bit_length()
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    return cuda_build.build_libraries([(SRC, ())], verbose)[0][0]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `wasserstein_h0_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
-def _load():
-    if "lib" not in _libs:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        _libs["lib"] = cuda_build.load(SRC, {
-            "wasserstein_h0_launch": ([P, P, L, L, I, P, P, L, L, I, I, P, P], I),
-            "wasserstein_h0_layout": ([P], I)})
-    return _libs["lib"]
-
-
+@cuda_build.once_per_card
 def check_layout(lib) -> dict:
     """The library's report (`LAYOUT_FIELDS`) against the plan: threads,
     pairs a block and shared bytes must be the plan's, within the card's
@@ -117,12 +110,7 @@ def check_layout(lib) -> dict:
 
 def layout_report() -> dict:
     """`check_layout` of the library on the current card, once per card."""
-    return _layout_report(torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _layout_report(device: int) -> dict:
-    return check_layout(_load())
+    return check_layout(cuda_build.load(SRC, SIGNATURES), card=torch.cuda.current_device())
 
 
 def _check(args):
@@ -157,7 +145,7 @@ def wasserstein_h0_cuda(d1, m1, d2, m2) -> torch.Tensor:
         return out
     with torch.cuda.device(dev):
         layout_report()
-        rc = _load().wasserstein_h0_launch(
+        rc = cuda_build.load(SRC, SIGNATURES).wasserstein_h0_launch(
             d1.data_ptr(), m1.data_ptr(), d1.stride(0), m1.stride(0), K1,
             d2.data_ptr(), m2.data_ptr(), d2.stride(0), m2.stride(0), K2, N,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

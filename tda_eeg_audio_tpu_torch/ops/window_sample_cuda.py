@@ -42,7 +42,7 @@ import torch
 from ..runtime import count
 from . import cuda_build
 
-__all__ = ["window_sample_cuda", "kernel_plan", "check_layout", "build", "SRC",
+__all__ = ["window_sample_cuda", "kernel_plan", "check_layout", "build", "SRC", "SIGNATURES",
            "MAX_NW", "N_BANDS"]
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "window_sample.cu"
@@ -65,8 +65,9 @@ GUARD_STEMS = ("bb00_ut01", "bb07_ut13", "bb44_ut39", "x" * 46, "y" * 47,
 GUARD_NW = (77, 90, 39, 5, 1, 200, MAX_NW, 84, 2, 40, 38, 88, 81)
 GUARD_N_PAIR = (0, 1, 14, 15, 90, 77, 60, 5, 2, 16, 3, 40, 38)
 GUARD_K, GUARD_KX = 39, 54
-
-_libs = {}
+P, I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"window_sample_launch": ([P, P, I, I, I, I, I, I, I, P, P, P], I),
+              "window_sample_layout": ([P], I)}
 
 
 def kernel_plan(B: int, K: int, Kx: int, nw_max: int) -> dict:
@@ -86,20 +87,13 @@ def kernel_plan(B: int, K: int, Kx: int, nw_max: int) -> dict:
                 bitmap_words=-(-nw_max // 32))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    return cuda_build.build_libraries([(SRC, ())], verbose)[0][0]
+def build() -> Path:
+    """Compile the kernel (once per source content) and return the .so
+    that `window_sample_cuda` loads."""
+    return cuda_build.build(SRC)
 
 
-def _load():
-    if "lib" not in _libs:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        _libs["lib"] = cuda_build.load(SRC, {
-            "window_sample_launch": ([P, P, I, I, I, I, I, I, I, P, P, P], I),
-            "window_sample_layout": ([P], I)})
-    return _libs["lib"]
-
-
+@cuda_build.once_per_card
 def check_layout(lib) -> dict:
     """The library's report (`LAYOUT_FIELDS`) against the plan: threads,
     MAX_NW and shared bytes must be the plan's, within the card's limits
@@ -112,23 +106,21 @@ def check_layout(lib) -> dict:
 def layout_report() -> dict:
     """`check_layout` of the library and the NumPy guard on the current
     card, once per card and process."""
-    return _layout_report(torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _layout_report(device: int) -> dict:
-    rep = check_layout(_load())
-    _guard(torch.device("cuda", device))
+    card = torch.cuda.current_device()
+    rep = check_layout(cuda_build.load(SRC, SIGNATURES), card=card)
+    _guard(card)
     return rep
 
 
-def _guard(dev):
+@functools.lru_cache(maxsize=None)
+def _guard(card: int) -> None:
     """GUARD_*'s lanes through the kernel and through the installed NumPy
-    (the router's CPU path); raises on any difference."""
+    (the router's CPU path) on a card, once; raises on any difference."""
     import numpy as np
 
     from .window_sample import SampleTables, window_sample_plain
 
+    dev = torch.device("cuda", card)
     tab = SampleTables(GUARD_STEMS, GUARD_NW, GUARD_N_PAIR)
     B = len(GUARD_STEMS)
     idx, mask = _launch(*tab.on(dev), 0, B, GUARD_K, GUARD_KX, False, tab.nw_max)
@@ -166,7 +158,7 @@ def _launch(text, ints, row0, B, K, Kx, first, nw_max):
     if B == 0:
         return idx, mask
     with torch.cuda.device(dev):
-        rc = _load().window_sample_launch(
+        rc = cuda_build.load(SRC, SIGNATURES).window_sample_launch(
             text.data_ptr(), ints.data_ptr(), text.shape[1], text.shape[0] - N_BANDS,
             row0, B, K, Kx, int(first), idx.data_ptr(), mask.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from tda_eeg_audio_tpu_torch import cli
-from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
+from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG, GOOD_ELECTRODES
+from tda_eeg_audio_tpu_torch.io.device_store import build_from_dataset
 from tda_eeg_audio_tpu_torch.io.matfiles import MatDataset
 from tda_eeg_audio_tpu_torch.models.study import StudyRunner
 from torch_tiny_data import write_mat_recordings
@@ -48,9 +49,11 @@ def features(data, tmp_path_factory):
 
 def test_features_equal_the_runners(data, features):
     X = np.load(features / "X.npy")
-    runner = StudyRunner(MatDataset(data), DEFAULT_CONFIG, eeg_batch=3,
-                         verbose=False, backend="host", t_eeg_pad=600,
-                         t_audio_pad=97020, n_rs_max=560, device="cpu")
+    store = build_from_dataset(MatDataset(data), GOOD_ELECTRODES, 600, 97020,
+                               device="cpu")
+    runner = StudyRunner(store, DEFAULT_CONFIG, eeg_batch=3, verbose=False,
+                         backend="host", t_eeg_pad=600, t_audio_pad=97020,
+                         n_rs_max=560)
     Xr, yr, sr, fr, meta = runner.compute_feature_dataset()
     assert X.shape == (8, 220) and np.isfinite(X).all()
     np.testing.assert_array_equal(X, Xr)
@@ -123,8 +126,20 @@ def test_compare_control_and_eda(data, tmp_path):
     assert len((tmp_path / "file_inventory.csv").read_text().splitlines()) == 9
 
 
-def test_store_on_the_cpu_gives_the_same_features(data, features, tmp_path):
-    assert _run("features", data, tmp_path, "--store") == 0
+def test_cli_reads_each_mat_file_once(data, features, tmp_path, monkeypatch):
+    """The CLI stages the dataset into a store once: `features` reads each
+    .mat file once, and gives the same X."""
+    reads = []
+    load = MatDataset.load
+
+    def counted(self, i):
+        reads.append(self.index[i][0])
+        return load(self, i)
+
+    monkeypatch.setattr(MatDataset, "load", counted)
+    assert _run("features", data, tmp_path) == 0
+    assert sorted(reads) == sorted(fn for fn, _, _ in MatDataset(data).index)
+    assert len(reads) == 8
     np.testing.assert_array_equal(np.load(tmp_path / "X.npy"),
                                   np.load(features / "X.npy"))
 

@@ -136,15 +136,18 @@ def test_staged_runner_and_preprocessed_artifact_with_the_iir_bank(tmp_path):
     from the FIR run's (the filter is applied), and written windows equal to
     eeg_window_program's on the same recording."""
     from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG, GOOD_ELECTRODES
+    from tda_eeg_audio_tpu_torch.io.device_store import build_from_dataset
     from tda_eeg_audio_tpu_torch.models.study import StudyRunner
     from torch_tiny_data import N_RS_MAX, T_AUDIO_PAD, T_EEG_PAD, TinyDataset
 
     def runner(impl):
         cfg = dataclasses.replace(DEFAULT_CONFIG, window_sec=0.2, fir_numtaps=101,
                                   filter_impl=impl)
-        return StudyRunner(TinyDataset(cfg, n_subjects=2), cfg, eeg_batch=4,
-                           verbose=False, backend="host", t_eeg_pad=T_EEG_PAD,
-                           t_audio_pad=T_AUDIO_PAD, n_rs_max=N_RS_MAX, device="cpu")
+        store = build_from_dataset(TinyDataset(cfg, n_subjects=2), GOOD_ELECTRODES,
+                                   T_EEG_PAD, T_AUDIO_PAD, device="cpu")
+        return StudyRunner(store, cfg, eeg_batch=4, verbose=False, backend="host",
+                           t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
+                           n_rs_max=N_RS_MAX)
 
     iir = runner("iir_scan")
     X, y, subjects, filenames, _ = iir.compute_feature_dataset()
@@ -153,7 +156,7 @@ def test_staged_runner_and_preprocessed_artifact_with_the_iir_bank(tmp_path):
     assert X_fir.shape == X.shape and not np.array_equal(X, X_fir)
     rows = iir.write_preprocessed(tmp_path)
     assert len(rows) == 4
-    rec = iir.ds.load(0)
+    rec = TinyDataset(iir.cfg, n_subjects=2).load(0)
     eeg = np.zeros((1, 47, T_EEG_PAD), np.float32)
     n = rec["eeg_raw"].shape[1]
     eeg[0, :, :n] = rec["eeg_raw"][list(GOOD_ELECTRODES)]

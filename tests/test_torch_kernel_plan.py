@@ -87,7 +87,7 @@ def test_kernel_source_builds_the_block_sizes_of_the_plan():
     src = (Path(thc.__file__).parent.parent / "csrc" / "h1_reduce.cu").read_text()
     planned = {thc.kernel_shape(n)["threads"] for n in range(2, thc.MAX_N + 1)}
     assert {int(t) for t in re.findall(r"return launch<(\d+)>", src)} == planned
-    assert {int(t) for t in re.findall(r"return blocks_per_sm<(\d+)>", src)} == planned
+    assert {int(t) for t in re.findall(r"return report<(\d+)>", src)} == planned
 
 
 def test_reduce_plain_commutes_with_window_permutation():
@@ -159,3 +159,21 @@ def test_profiled_launch_refuses_cpu_and_stays_out_of_entry_points():
              if re.search("|".join(v for k, v in own.items() if k != p.name)
                           + r"|PROFILE_FLAGS" * (p.name not in own), p.read_text())]
     assert users == []
+
+
+def test_only_cuda_build_binds_native_libraries():
+    """`ops/cuda_build` is the one owner of the port's native libraries: no
+    other module of the package opens a library, sets an entry point's
+    types or keeps a cache of libraries; every launcher declares its
+    `SIGNATURES` and loads through `cuda_build.load`."""
+    pkg = Path(thc.__file__).parent.parent
+    binding = re.compile(r"ctypes\.CDLL|cdll\.LoadLibrary|\.argtypes\s*=|\.restype\s*="
+                         r"|_libs\s*=")
+    owners = sorted(p.relative_to(pkg).as_posix() for p in pkg.rglob("*.py")
+                    if binding.search(p.read_text()))
+    assert owners == ["ops/cuda_build.py"]
+    launchers = sorted(pkg.glob("ops/*_cuda.py")) + [pkg / "native" / "engine.py"]
+    assert len(launchers) == 8
+    for p in launchers:
+        src = p.read_text()
+        assert "SIGNATURES = {" in src and "cuda_build.load(" in src, p.name

@@ -214,27 +214,18 @@ def test_artifacts_have_the_reference_schemas(runs):
     assert len(figs) == 4
 
 
-def test_host_dataset_staging_matches_store(runs):
-    """A runner over the host dataset itself (no store) stages the same
-    batch as the store, isolates the failing file and reads lengths from
-    the records."""
+def test_runner_refuses_a_host_dataset(runs):
+    """The runner reads a `DeviceStore` only: a host dataset is refused
+    with a TypeError that names `build_from_dataset`; the store's failed
+    file is the runner's one failed file."""
     ds, tr = runs["ds"], runs["tr"]
-    host = tstudy.StudyRunner(ds, tr.cfg, eeg_batch=4, verbose=False,
-                              t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
-                              n_rs_max=N_RS_MAX, device="cpu")
-    idxs = [0, SHORT, FAILS]
-    eeg_h, audio_h, ns_e_h, ns_a_h, metas_h = host._load_batch(idxs)
-    eeg_s, audio_s, ns_e_s, ns_a_s, metas_s = tr._load_batch(idxs)
-    assert torch.equal(eeg_h, eeg_s) and torch.equal(audio_h, audio_s)
-    np.testing.assert_array_equal(ns_e_h, ns_e_s)
-    np.testing.assert_array_equal(ns_a_h, ns_a_s)
-    assert [m["failed"] for m in metas_h] == [False, False, True]
-    assert [f for f, _ in host.failed_files] == [ds.index[FAILS][0]]
-    for i in idxs:
-        assert host._rec_length(i)[1] == tr._rec_length(i)[1]
-        if i != FAILS:
-            assert host._rec_length(i) == tr._rec_length(i)
-            assert host._audio_length(i) == tr._audio_length(i)
+    with pytest.raises(TypeError, match="build_from_dataset"):
+        tstudy.StudyRunner(ds, tr.cfg, eeg_batch=4, verbose=False,
+                           t_eeg_pad=T_EEG_PAD, t_audio_pad=T_AUDIO_PAD,
+                           n_rs_max=N_RS_MAX, device="cpu")
+    assert [f for f, _ in tr.failed_files] == [ds.index[FAILS][0]]
+    assert [m["failed"] for m in tr.store.batch([0, SHORT, FAILS])[4]] == \
+        [False, False, True]
     # padding rows of the store: zeroed, one empty second long
     e, a, ne, na, m = tr.store.batch([1], pad_to=3)
     assert e.shape[0] == a.shape[0] == 3 and len(m) == 1
@@ -327,10 +318,10 @@ def _old_per_batch_arrays(runner, mis_idx, mis_slot, bank):
     """Each (batch, shard)'s arrays as the comparison loop built them in
     the batch, before they were computed once a stage."""
     zero_slot = bank["b"].shape[0] - 1
-    N, out = len(runner.ds), []
+    N, out = len(runner.store), []
     for b0 in range(0, N, runner.eeg_batch):
         idxs = list(range(b0, min(b0 + runner.eeg_batch, N)))
-        _, _, ns_e_b, ns_a_b, metas_b = runner._load_batch(idxs)
+        _, _, ns_e_b, ns_a_b, metas_b = runner.store.batch(idxs)
         gidx = (_old_bank_gather_idx(runner, idxs, metas_b)
                 if runner._eeg_bank is not None else None)
         for dev, part, sl in runner._shards(idxs):
@@ -340,7 +331,7 @@ def _old_per_batch_arrays(runner, mis_idx, mis_slot, bank):
             mis_degen = np.zeros((B, tstudy.N_BANDS, tstudy.K_CMP), bool)
             has_mis = np.zeros(B, bool)
             for b, i in enumerate(part):
-                fn, subj, cond = runner.ds.index[i]
+                fn, subj, cond = runner.store.index[i]
                 u = mis_slot.get(mis_idx.get((subj, cond)))
                 if u is not None:
                     has_mis[b], slots[b] = True, u

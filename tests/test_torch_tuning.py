@@ -14,7 +14,8 @@ import pytest
 import tda_eeg_audio_tpu.tuning as jtuning
 import tda_eeg_audio_tpu_torch.tuning as tuning
 from tda_eeg_audio_tpu_torch import cli
-from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG
+from tda_eeg_audio_tpu_torch.config import DEFAULT_CONFIG, GOOD_ELECTRODES
+from tda_eeg_audio_tpu_torch.io.device_store import build_from_dataset
 from tda_eeg_audio_tpu_torch.models.study import StudyRunner
 from torch_tiny_data import TinyDataset
 
@@ -93,11 +94,12 @@ def test_runner_takes_the_tuned_knobs_unless_given(monkeypatch):
     monkeypatch.setattr(tuning, "EEG_BATCH", 7)
     monkeypatch.setattr(tuning, "EEG_BANK", False)
     monkeypatch.setattr(tuning, "FEATURE_NA_MAX", 64)
-    ds = TinyDataset(DEFAULT_CONFIG, n_subjects=1)
-    r = StudyRunner(ds, DEFAULT_CONFIG, verbose=False, device="cpu")
+    store = build_from_dataset(TinyDataset(DEFAULT_CONFIG, n_subjects=1),
+                               GOOD_ELECTRODES, device="cpu")
+    r = StudyRunner(store, DEFAULT_CONFIG, verbose=False)
     assert (r.eeg_batch, r.use_eeg_bank, r.feature_na_max) == (7, False, 64)
-    r = StudyRunner(ds, DEFAULT_CONFIG, eeg_batch=3, eeg_bank=True,
-                    feature_na_max=96, verbose=False, device="cpu")
+    r = StudyRunner(store, DEFAULT_CONFIG, eeg_batch=3, eeg_bank=True,
+                    feature_na_max=96, verbose=False)
     assert (r.eeg_batch, r.use_eeg_bank, r.feature_na_max) == (3, True, 96)
 
 

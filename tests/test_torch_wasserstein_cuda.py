@@ -23,6 +23,7 @@ import torch
 from test_torch_ops import _study_diagrams
 from tda_eeg_audio_tpu.models import programs as jprog
 from tda_eeg_audio_tpu_torch.models import programs as tprog
+from tda_eeg_audio_tpu_torch.ops import cuda_build
 from tda_eeg_audio_tpu_torch.ops import wasserstein as tw
 from tda_eeg_audio_tpu_torch.ops import wasserstein_cuda as twc
 
@@ -388,9 +389,9 @@ def test_library_reports_the_plan_on_card():
     launcher runs once per process)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
-    for profile in (False, True):
-        reports = twc.check_layout(twc._load(profile))
-        print(f"layout (instrumented {profile}): {reports}")
+    for flags in ((), twc.PROFILE_FLAGS):
+        reports = twc.check_layout(cuda_build.load(twc.SRC, twc.SIGNATURES, flags))
+        print(f"layout ({flags or 'main build'}): {reports}")
         for w, rep in reports.items():
             plan = twc.class_shape(w)
             assert (rep["threads"], rep["smem_bytes"], rep["blocks_per_sm"]) == \

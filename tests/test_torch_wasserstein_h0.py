@@ -300,11 +300,11 @@ def test_router_never_falls_back_off_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="CUDA"):
         tw.wasserstein_h0_exact(*args)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(th0, "_libs", {})
+        mp.setattr(cuda_build, "_libs", {})
         mp.setattr(cuda_build, "_nvcc", _no_nvcc)
         mp.setattr(cuda_build, "BUILD_DIR", tmp_path)
         with pytest.raises(RuntimeError, match="nvcc"):
-            th0._load()
+            cuda_build.load(th0.SRC, th0.SIGNATURES)
 
 
 @pytest.mark.parametrize("K1,K2", [(46, 123), (64, 128), (1, 1), (128, 128)])

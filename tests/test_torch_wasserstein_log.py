@@ -312,11 +312,11 @@ def test_router_never_falls_back_off_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="CUDA"):
         tw.sinkhorn_cost_pairs(*args)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tsl, "_libs", {})
+        mp.setattr(cuda_build, "_libs", {})
         mp.setattr(cuda_build, "_nvcc", _no_nvcc)
         mp.setattr(cuda_build, "BUILD_DIR", tmp_path)
         with pytest.raises(RuntimeError, match="nvcc"):
-            tsl._load()
+            cuda_build.load(tsl.SRC, tsl.SIGNATURES)
 
 
 @pytest.mark.parametrize("K1,K2", [(128, 128), (1, 1), (64, 128)])

@@ -318,11 +318,11 @@ def test_router_never_falls_back_off_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="CUDA"):
         tws.window_sample(tab, 0, 1, 39, 39, "meta")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(twc, "_libs", {})
+        mp.setattr(cuda_build, "_libs", {})
         mp.setattr(cuda_build, "_nvcc", _no_nvcc)
         mp.setattr(cuda_build, "BUILD_DIR", tmp_path)
         with pytest.raises(RuntimeError, match="nvcc"):
-            twc._load()
+            cuda_build.load(twc.SRC, twc.SIGNATURES)
 
 
 @pytest.mark.parametrize("B,K,Kx,nw_max", [(64, 39, 54, 90), (45, 39, 39, 90),

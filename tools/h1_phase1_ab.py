@@ -23,7 +23,6 @@ build/h1_phase1_ab.json).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import sys
 from pathlib import Path
@@ -63,19 +62,10 @@ def main() -> int:
     jobs = [(src.resolve(), flags + extra) for _, src, _, flags in builds
             for extra in ((), P1.PROFILE_FLAGS)]
     unique = list(dict.fromkeys(jobs))          # one nvcc per library
-    built = dict(zip(unique, cuda_build.build_libraries(unique, verbose=True)[0]))
-    sos = [built[j] for j in jobs]
-    argtypes = P1._load().h1_phase1_launch.argtypes
-
-    def load(so):
-        lib = ctypes.CDLL(str(so))
-        lib.h1_phase1_launch.argtypes = argtypes
-        lib.h1_phase1_launch.restype = ctypes.c_int
-        lib.h1_phase1_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-        return lib
-
-    libs = {name: (load(sos[2 * k]), load(sos[2 * k + 1]))
-            for k, (name, *_rest) in enumerate(builds)}
+    cuda_build.build_libraries(unique, verbose=True)
+    libs = {name: tuple(cuda_build.load(src.resolve(), P1.SIGNATURES, flags + extra)
+                        for extra in ((), P1.PROFILE_FLAGS))
+            for name, src, _, flags in builds}
     threads_124 = {name: t for name, _, t, _ in builds}
 
     dev = torch.device("cuda")
@@ -99,19 +89,19 @@ def main() -> int:
                 threads = threads_124[name] if n > 64 else None
                 P1.kernel_plan = (lambda n_, na_, t=threads: dict(plan0(n_, na_), threads=t)
                                   if t else plan0(n_, na_))
-                P1._libs[False], P1._libs[True] = libs[name]
-                got = P1.phase1_cuda(dm, n, 2.0, na, n_pts)
+                lib, lib_p = libs[name]
+                got = P1.run(lib, dm, n_pts, n, 2.0, na)
                 ref = got if ref is None else ref
                 same = all(same_bits(got[k], ref[k]) for k in ref if k != "m")
                 ok &= same
-                ms = cuda_ms(lambda: P1.phase1_cuda(dm, n, 2.0, na, n_pts), args.reps)
+                ms = cuda_ms(lambda: P1.run(lib, dm, n_pts, n, 2.0, na), args.reps)
                 t = P1.kernel_plan(n, na)["threads"]
-                prof = P1.phase1_cuda_profiled(dm, n, 2.0, na, n_pts)
+                prof = P1.run(lib_p, dm, n_pts, n, 2.0, na, profile=True)
                 ph = phase1_profile_reading(prof["prof"], prof["stamps"], n_sms,
-                                            libs[name][1].h1_phase1_blocks_per_sm(n, t))
+                                            P1.check_layout(lib_p, n)["occupancy"])
                 rows.setdefault(name, []).append(dict(
                     ms=ms, same_bits=same, threads=t,
-                    blocks_per_sm=libs[name][0].h1_phase1_blocks_per_sm(n, t),
+                    blocks_per_sm=P1.check_layout(lib, n)["occupancy"],
                     share=ph["share"], window_us=ph["window_us_mean"],
                     sm_busy=ph["sm_busy"]))
             rec = dict(shape=shape, windows=int(dm.shape[0]), reps=args.reps, builds=rows)
@@ -119,7 +109,6 @@ def main() -> int:
             print(json.dumps(rec), flush=True)
     finally:
         P1.kernel_plan = plan0
-        P1._libs.clear()
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     print(json.dumps(dict(ok=bool(ok))))

@@ -68,21 +68,16 @@ def main() -> int:
     jobs = [(src.resolve(), flags + extra) for _, src, flags in builds
             for extra in ((), WC.PROFILE_FLAGS)]
     unique = list(dict.fromkeys(jobs))          # one nvcc per library
-    built = dict(zip(unique, cuda_build.build_libraries(unique, verbose=True)[0]))
-    sos = [built[j] for j in jobs]
+    cuda_build.build_libraries(unique, verbose=True)
+    Pt, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    legacy_sig = {"sinkhorn_tiered_launch": (
+        [Pt, Pt, Pt, I, Pt, Pt, Pt, I, I, Pt, I, F, I, I, Pt, I, Pt], I)}
     libs = {}
-    for k, (name, _, _) in enumerate(builds):
-        lib, lib_p = ctypes.CDLL(str(sos[2 * k])), ctypes.CDLL(str(sos[2 * k + 1]))
-        legacy = not hasattr(lib, "sinkhorn_tiered_layout")
-        if legacy:
-            Pt, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.sinkhorn_tiered_launch.argtypes = (
-                [Pt, Pt, Pt, I, Pt, Pt, Pt, I, I, Pt, I, F, I, I, Pt, I, Pt])
-            lib.sinkhorn_tiered_launch.restype = I
-        else:
-            WC.bind(lib)
-            WC.bind(lib_p)
-        libs[name] = (lib, lib_p, legacy)
+    for name, src, flags in builds:
+        legacy = "sinkhorn_tiered_layout" not in src.read_text()
+        sig = legacy_sig if legacy else WC.SIGNATURES
+        libs[name] = (cuda_build.load(src.resolve(), sig, flags),
+                      cuda_build.load(src.resolve(), sig, flags + WC.PROFILE_FLAGS), legacy)
 
     def run_legacy(lib, pairs):
         b1, d1, m1, b2, d2, m2 = pairs
@@ -153,7 +148,8 @@ def main() -> int:
             row = dict(ms=ms, ms_by_width=by_width, max_rel_vs_plain=rel_plain,
                        max_rel_vs_float64=rel_f64)
             if not legacy:
-                row["layout"] = {w: WC.library_layout(lib, w) for w in WC.WIDTHS}
+                row["layout"] = {w: cuda_build.library_layout(
+                    lib, "sinkhorn_tiered_layout", WC.LAYOUT_FIELDS, w) for w in WC.WIDTHS}
                 prof = torch.zeros((len(widths), len(WC.PROFILE_SLOTS)),
                                    dtype=torch.int64, device=dev)
                 stamps = torch.zeros((len(widths), 3), dtype=torch.int64, device=dev)

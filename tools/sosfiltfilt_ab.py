@@ -118,17 +118,13 @@ def main() -> int:
     builds += args.variant
     jobs = list(dict.fromkeys((src.resolve(), flags) for _, src, _, flags in builds))
     built = dict(zip(jobs, cuda_build.build_libraries(jobs, verbose=True)[0]))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    legacy_sig = {"sosfiltfilt_launch": ([P] * 6 + [I] * 6 + [P], I)}
     libs, usage = {}, {}
     for name, src, threads, flags in builds:
         so = built[(src.resolve(), flags)]
-        lib = ctypes.CDLL(str(so))
-        legacy = not hasattr(lib, "sosfiltfilt_layout")
-        if legacy:
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.sosfiltfilt_launch.argtypes = [P] * 6 + [I] * 6 + [P]
-            lib.sosfiltfilt_launch.restype = I
-        else:
-            IC.bind(lib)
+        legacy = "sosfiltfilt_layout" not in src.read_text()
+        lib = cuda_build.load(src.resolve(), legacy_sig if legacy else IC.SIGNATURES, flags)
         libs[name] = (lib, legacy, threads or IC.THREADS)
         # the kernels at the bank's S = 4 sections
         usage[name] = {f: u for f, u in resource_usage(so).items() if "ILi4E" in f}
@@ -205,7 +201,9 @@ def main() -> int:
             else:
                 plan = IC.kernel_plan(int(x[..., 0].numel()), nb, T, edge, n_sec, threads)
                 row.update(threads=threads, chunk=plan["chunk"], staging=plan["staging"],
-                           layout=IC.library_layout(plan, n_sec, libs[name][0]))
+                           layout=IC.check_layout(libs[name][0], n_sec, plan["threads"],
+                                                  plan["shared_bytes"],
+                                                  plan["staging"] == "device"))
             rows.setdefault(name, []).append(row)
         del plain
         bound = iir_bound(n.expand(x.shape[:-1]), T, nb, n_sec, edge, clock_hz)

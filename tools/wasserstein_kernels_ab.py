@@ -152,23 +152,11 @@ def main() -> int:
     empty.write_text(EMPTY_SRC)
     jobs = [(src.resolve(), flags) for _, src, flags in builds_a + builds_b] + [(empty, ())]
     unique = list(dict.fromkeys(jobs))          # one nvcc per library
-    built = dict(zip(unique, cuda_build.build_libraries(unique, verbose=True)[0]))
-    Pt, I, F, Lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-
-    def bind(so, sig):
-        lib = ctypes.CDLL(str(so))
-        for sym, (at, rt) in sig.items():
-            fn = getattr(lib, sym)
-            fn.argtypes, fn.restype = at, rt
-        return lib
-
-    sig_a = {"sinkhorn_log_launch": ([Pt, Pt, Pt, I, Pt, Pt, Pt, I, I, Pt, I, F, I, Pt, Pt], I),
-             "sinkhorn_log_layout": ([Pt], I)}
-    sig_b = {"wasserstein_h0_launch": ([Pt, Pt, Lg, Lg, I, Pt, Pt, Lg, Lg, I, I, Pt, Pt], I),
-             "wasserstein_h0_layout": ([Pt], I)}
-    libs_a = {n: bind(built[(s.resolve(), f)], sig_a) for n, s, f in builds_a}
-    libs_b = {n: bind(built[(s.resolve(), f)], sig_b) for n, s, f in builds_b}
-    lib_e = bind(built[(empty, ())], {"empty_launch": ([I, I, Pt], I)})
+    cuda_build.build_libraries(unique, verbose=True)
+    libs_a = {n: cuda_build.load(s.resolve(), SL.SIGNATURES, f) for n, s, f in builds_a}
+    libs_b = {n: cuda_build.load(s.resolve(), WH.SIGNATURES, f) for n, s, f in builds_b}
+    lib_e = cuda_build.load(empty, {"empty_launch": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)})
 
     ladder = SL.eps_ladder()
 
