@@ -132,8 +132,8 @@ def eeg_throughput(recordings: int = 64, windows: int = 40, repeats: int = 2,
 
     def device_pass():
         eeg = synth_eeg(B, gen, dev, cfg.fs_eeg)
-        agg, ovf = eeg_feature_program(eeg, ns, use_idx, use_mask, cfg, N_WIN,
-                                       K, device=dev)
+        agg, ovf = eeg_feature_program(eeg, ns, use_idx, use_mask, cfg, K=K,
+                                       device=dev)
         return dict(eeg=eeg, ns=ns, use_idx=use_idx, use_mask=use_mask,
                     agg=agg, ovf=ovf)
 

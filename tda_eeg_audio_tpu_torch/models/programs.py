@@ -65,22 +65,34 @@ def h1_diagrams_routed(dm, n_pts=None, *, n: int, thresh: float, na_max: int,
 # ─────────────────────────────────────────────────────────────────────────────
 
 
-def _banded_windows(eeg, n_samples, cfg, n_win_max):
-    """Filter bank → 1 s / 75 % sliding windows.
-    Returns (wins (B, 5, W, C, win), wmask (B, W))."""
+def _band_bank(eeg, n_samples, cfg):
+    """Filter bank: (B, C, T) → banded (B, C, 5, T) (the FIR bank's output is
+    a strided slice of its `irfft` buffer, the IIR bank's contiguous)."""
     if cfg.filter_impl == "iir_scan":
         # exact Butterworth sosfiltfilt (length-aware; the CUDA recurrence
         # kernel for CUDA tensors)
-        banded = tsig.bandpass_bank_iir_scan(eeg, n_samples[:, None],
-                                             cfg.fs_eeg, cfg.filter_order)
-    else:
-        banded = tsig.bandpass_bank(eeg, _fir_bank(cfg, eeg.device))   # (B, C, 5, T)
+        return tsig.bandpass_bank_iir_scan(eeg, n_samples[:, None], cfg.fs_eeg,
+                                           cfg.filter_order)
+    return tsig.bandpass_bank(eeg, _fir_bank(cfg, eeg.device))
+
+
+def _banded_windows(eeg, n_samples, cfg, n_win_max):
+    """Filter bank → 1 s / 75 % sliding windows.
+    Returns (wins (B, 5, W, C, win), wmask (B, W))."""
+    banded = _band_bank(eeg, n_samples, cfg)                      # (B, C, 5, T)
     win, step = cfg.win_samples, cfg.step_samples
     wins = tsig.sliding_windows(banded, n_win_max, win, step)    # (B, C, 5, W, win)
     wins = wins.permute(0, 2, 3, 1, 4)                           # (B, 5, W, C, win)
     starts = torch.arange(n_win_max, device=eeg.device) * step
     wmask = (starts + win)[None, :] <= n_samples[:, None]
     return wins, wmask
+
+
+def _window_distances(banded, use_idx, cfg):
+    """The configuration's distances of the (B, 5, K) windows use_idx of a
+    banded signal (`ops.geometry.window_distances`: the kernel on a card)."""
+    return tgeo.window_distances(banded, use_idx, cfg.distance_method,
+                                 cfg.win_samples, cfg.step_samples)
 
 
 def _fir_bank(cfg: PipelineConfig, dev: torch.device) -> torch.Tensor:
@@ -128,22 +140,19 @@ def window_tda_features(dm, thresh: float = 2.0, na_max: int = 128,
     return torch.stack([f_h0, f_h1], dim=1), out
 
 
-def eeg_window_distances(eeg, n_samples, use_idx, cfg, n_win_max: int):
-    """Filter bank → windows → the (B, 5, K) selected windows' correlation
-    distances.  eeg (B, 47, T_pad), n_samples (B,), use_idx (B, 5, K) tensors
-    on one device.  Returns (dist (B, 5, K, n, n), wins (B, 5, W, C, win))."""
-    wins, _ = _banded_windows(eeg, n_samples, cfg, n_win_max)
-    C, win = wins.shape[-2:]
-    sel = wins.gather(2, use_idx[:, :, :, None, None].expand(-1, -1, -1, C, win))
-    dist = tgeo.correlation_to_distance(tgeo.correlation_matrix(sel),
-                                        cfg.distance_method)
-    return dist, wins
+def eeg_window_distances(eeg, n_samples, use_idx, cfg):
+    """Filter bank → the (B, 5, K) selected windows' correlation distances,
+    read in place from the banded signal (the span `eeg_window_distances`).
+    eeg (B, 47, T_pad), n_samples (B,), use_idx (B, 5, K) tensors on one
+    device.  Returns dist (B, 5, K, n, n)."""
+    banded = _band_bank(eeg, n_samples, cfg)
+    with span("eeg_window_distances", eeg.device):
+        return _window_distances(banded, use_idx, cfg)
 
 
 def eeg_feature_program(eeg, n_samples, use_idx, use_mask,
                         cfg: PipelineConfig = DEFAULT_CONFIG,
-                        n_win_max: int = 90, K: int = 39,
-                        na_max: int = 128, step_budget: int = 4096,
+                        K: int = 39, na_max: int = 128, step_budget: int = 4096,
                         return_dm0: bool = False, return_bank: bool = False,
                         device=None):
     """Features stage: padded EEG (B, 47, T_pad) → (B, 5, 2, 11, 2)
@@ -152,7 +161,8 @@ def eeg_feature_program(eeg, n_samples, use_idx, use_mask,
     mean/std).  use_idx/use_mask: (B, 5, K) window sample.  Returns
     (agg, ovf (B,)) — ovf flags recordings with an overflowed used window —
     and, with return_dm0, the window-0 distance diagnostics (B, 5, 8)
-    between them.  The H1 wrapper chunks windows to bound its memory.
+    between them (window 0 rides as one more index column of the same
+    launch).  The H1 wrapper chunks windows to bound its memory.
 
     return_bank appends a dict of per-window diagrams of EVERY column
     (mask=False columns included), packed as the comparison consumes them:
@@ -162,20 +172,22 @@ def eeg_feature_program(eeg, n_samples, use_idx, use_mask,
     `comparison_from_bank`.  The call is the span `eeg_feature_program`."""
     dev = resolve_device(device)
     with span("eeg_feature_program", dev):
-        return _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, n_win_max,
-                                    K, na_max, step_budget, return_dm0, return_bank, dev)
+        return _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, K, na_max,
+                                    step_budget, return_dm0, return_bank, dev)
 
 
-def _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, n_win_max, K,
-                         na_max, step_budget, return_dm0, return_bank, dev):
+def _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, K, na_max,
+                         step_budget, return_dm0, return_bank, dev):
     eeg = torch.as_tensor(eeg, device=dev, dtype=torch.float32)
     n_samples = torch.as_tensor(n_samples, device=dev).long()
     use_idx = torch.as_tensor(use_idx, device=dev).long()
     use_mask = torch.as_tensor(use_mask, device=dev, dtype=torch.bool)
     B = eeg.shape[0]
-    dist, wins = eeg_window_distances(eeg, n_samples, use_idx, cfg, n_win_max)
+    if return_dm0:
+        use_idx = torch.cat([use_idx, use_idx.new_zeros((B, N_BANDS, 1))], dim=2)
+    dist = eeg_window_distances(eeg, n_samples, use_idx, cfg)
     n = dist.shape[-1]
-    feats, out = window_tda_features(dist.reshape(B * N_BANDS * K, n, n),
+    feats, out = window_tda_features(dist[:, :, :K].reshape(B * N_BANDS * K, n, n),
                                      thresh=cfg.max_edge_length, na_max=na_max,
                                      h1_max=na_max, step_budget=step_budget)
     feats = feats.reshape(B, N_BANDS, K, 22)
@@ -196,9 +208,7 @@ def _eeg_feature_program(eeg, n_samples, use_idx, use_mask, cfg, n_win_max, K,
                      ovf=ovf_cols.any(dim=2).any(dim=1)),)
     if not return_dm0:
         return (agg, ovf) + tail
-    corr0 = tgeo.correlation_matrix(wins[:, :, 0])
-    dm0 = tgeo.correlation_to_distance(corr0, cfg.distance_method)
-    return (agg, _dm_diagnostics(dm0), ovf) + tail
+    return (agg, _dm_diagnostics(dist[:, :, K]), ovf) + tail
 
 
 def _dm_diagnostics(dm):
@@ -301,13 +311,8 @@ def _pair_distance_program(eeg, n_samples, aud_use_idx, aud_n_win,
     set) → correlation distance.  Returns (dist (B, 5·K, n, n), kmask (B, K),
     n_pair (B,))."""
     B = eeg.shape[0]
-    wins, _ = _banded_windows(eeg, n_samples, cfg, n_win_max)
-    C, win = wins.shape[-2:]
-    use_idx = aud_use_idx.clamp(0, n_win_max - 1)
-    sel_w = wins.gather(2, use_idx[:, None, :, None, None]
-                        .expand(-1, N_BANDS, -1, C, win))
-    dist = tgeo.correlation_to_distance(tgeo.correlation_matrix(sel_w),
-                                        cfg.distance_method)
+    use_idx = aud_use_idx.clamp(0, n_win_max - 1)[:, None, :].expand(-1, N_BANDS, -1)
+    dist = _window_distances(_band_bank(eeg, n_samples, cfg), use_idx, cfg)
     n_pair = aud_n_win.long()
     k = torch.arange(K, device=eeg.device)
     kmask = k[None, :] < torch.clamp(n_pair, max=K)[:, None]

@@ -431,7 +431,7 @@ class StudyRunner:
                                                       K, Kx, dev)
                 outs = programs.eeg_feature_program(
                     eeg[sl].to(dev, non_blocking=True), ns_e[sl], use_idx,
-                    use_mask, cfg, self.n_win_max, Kx, na_max=self.feature_na_max,
+                    use_mask, cfg, K=Kx, na_max=self.feature_na_max,
                     return_dm0=True, return_bank=with_bank, device=dev)
                 if with_bank:
                     bank = outs[3]
@@ -540,8 +540,8 @@ class StudyRunner:
         B = len(idxs)
         use_idx, use_mask = window_sample(tables, row0, B, K, K, self.device)
         eeg, _, ns_e, _, _ = self.store.batch(idxs)
-        dist, _ = programs.eeg_window_distances(
-            eeg, self._dev(ns_e), self._dev(use_idx), self.cfg, self.n_win_max)
+        dist = programs.eeg_window_distances(eeg, self._dev(ns_e), self._dev(use_idx),
+                                             self.cfg)
         n = dist.shape[-1]
         tda = homology_exec.run_tda(dist.reshape(B * N_BANDS * K, n, n),
                                     self.cfg.max_edge_length, na_max=128,

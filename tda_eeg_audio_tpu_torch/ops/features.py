@@ -14,7 +14,13 @@ N_FEATURES = len(DIAGRAM_FEATURES)  # 11
 
 def diagram_features(births: torch.Tensor, deaths: torch.Tensor, mask: torch.Tensor,
                      n_essential: torch.Tensor) -> torch.Tensor:
-    """(..., K) padded diagrams → (..., 11) features, order = DIAGRAM_FEATURES."""
+    """(..., K) padded diagrams → (..., 11) features, order = DIAGRAM_FEATURES.
+    Computed in float64 and rounded once to the input's dtype: a float32 sum
+    over the arena's K columns rounds by K on a card (the reduction's order
+    follows the width), so `feature_na_max` moved the features by an ULP and
+    a Spearman rank over near-tied windows with them."""
+    dtype = births.dtype
+    births, deaths = births.double(), deaths.double()
     m = mask.to(births.dtype)
     n = m.sum(dim=-1)
     nz = torch.clamp(n, min=1.0)
@@ -52,7 +58,7 @@ def diagram_features(births: torch.Tensor, deaths: torch.Tensor, mask: torch.Ten
     ], dim=-1)
     empty = (n == 0.0)[..., None]
     keep_col = torch.arange(N_FEATURES, device=births.device) == 1
-    return torch.where(empty & ~keep_col, torch.zeros_like(feats), feats)
+    return torch.where(empty & ~keep_col, torch.zeros_like(feats), feats).to(dtype)
 
 
 def aggregate_mean_std(x: torch.Tensor, wmask: torch.Tensor) -> torch.Tensor:

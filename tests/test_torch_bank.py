@@ -82,7 +82,7 @@ def torch_banks(case):
     """{na_max: (agg, bank)} of the port's features stage, each run once."""
     return {na_max: tprog.eeg_feature_program(
         case["eeg"], case["n_e"], case["use_idx"], case["use_mask"],
-        case["tcfg"], N_WIN_MAX, case["Kx"], na_max=na_max, return_bank=True,
+        case["tcfg"], K=case["Kx"], na_max=na_max, return_bank=True,
         device="cpu")[::2] for na_max in (128, 64)}
 
 

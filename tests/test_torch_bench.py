@@ -43,8 +43,8 @@ def test_line_keys_and_counts(run):
 def test_agg_equals_the_program_on_the_same_eeg(run):
     _, last = run
     agg, ovf = eeg_feature_program(last["eeg"], last["ns"], last["use_idx"],
-                                   last["use_mask"], DEFAULT_CONFIG,
-                                   bench_torch.N_WIN, 2, device="cpu")
+                                   last["use_mask"], DEFAULT_CONFIG, K=2,
+                                   device="cpu")
     assert torch.equal(agg, last["agg"]) and torch.equal(ovf, last["ovf"])
     # distinct windows per (recording, band), all inside the recording
     idx = last["use_idx"]

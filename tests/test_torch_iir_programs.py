@@ -96,7 +96,7 @@ def test_window_program_bands_the_windows(tiny):
 def test_feature_program_matches_jax(tiny):
     agg, ovf = tprog.eeg_feature_program(
         tiny["eeg"], tiny["n_e"], tiny["use_idx"], tiny["use_mask"], tiny["tcfg"],
-        N_WIN_MAX, K, device="cpu")
+        K=K, device="cpu")
     j_dist = tiny["ref"][0].astype(np.float32)
     sel = np.take_along_axis(j_dist, tiny["use_idx"][:, :, :, None, None], axis=2)
     f, out = jprog.window_tda_features(jnp.asarray(sel.reshape(-1, 47, 47)),

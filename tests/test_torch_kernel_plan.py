@@ -173,7 +173,7 @@ def test_only_cuda_build_binds_native_libraries():
                     if binding.search(p.read_text()))
     assert owners == ["ops/cuda_build.py"]
     launchers = sorted(pkg.glob("ops/*_cuda.py")) + [pkg / "native" / "engine.py"]
-    assert len(launchers) == 8
+    assert len(launchers) == 9
     for p in launchers:
         src = p.read_text()
         assert "SIGNATURES = {" in src and "cuda_build.load(" in src, p.name

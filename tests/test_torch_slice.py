@@ -82,7 +82,7 @@ def test_feature_program_matches_jax(tiny):
         tiny["jcfg"], N_WIN_MAX, K, chunk=64, return_dm0=True)
     t_agg, t_diag, t_ovf = tprog.eeg_feature_program(
         tiny["eeg"], tiny["n_e"], tiny["use_idx"], tiny["use_mask"],
-        tiny["tcfg"], N_WIN_MAX, K, return_dm0=True, device="cpu")
+        tiny["tcfg"], K=K, return_dm0=True, device="cpu")
     assert t_agg.shape == (B, 5, 2, 11, 2)
     _close(t_agg, j_agg, "agg")
     _close(t_ovf, j_ovf, "ovf")
@@ -167,7 +167,7 @@ def test_entry_points_refuse_missing_cuda(tiny):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tprog.eeg_feature_program(tiny["eeg"], tiny["n_e"], tiny["use_idx"],
-                                  tiny["use_mask"], tiny["tcfg"], N_WIN_MAX, K)
+                                  tiny["use_mask"], tiny["tcfg"], K=K)
     with pytest.raises(RuntimeError, match="CUDA"):
         tprog.audio_h1_program(tiny["mis"], tiny["n_mis"], tiny["tcfg"],
                                N_RS_MAX, N_WIN_MAX, K)
